@@ -1,21 +1,27 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, drives the main path (phase-B
-training steps of the full-size model at the bench shapes, then an eval
-render) through them, and prints what it measured.
+holds each against its plain PyTorch version, drives the two trace
+configurations of the main path (phase-B training steps of the full-size
+model at the bench shapes, then an eval render) through them, and prints
+what it measured.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
-  1. build   compile every kernel from the sources in the checkout
-  2. kernel  each kernel against its plain version at the main path's
-             widths (tolerance stated below), with timings and bounds
-  3. train   3 warm-up + 5 timed phase-B steps, B=8 images x P=4096 rays,
-             full-width model from seed 0, on the synthetic bench scene
-  4. eval    eval-mode render of one view's 4096 rays; a small render
-             through the kernel against one through the plain field
-The line before the last is a JSON object listing each kernel; the last is
-{"ok": true, "device": {...}}. Without a GPU it exits non-zero and prints
-no result.
+  1. build        compile every kernel from the sources in the checkout
+  2. kernel       each kernel against its plain version at the main path's
+                  widths (tolerances stated below), with timings and bounds
+  3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
+                  images x P=4096 rays, full-width model from seed 0, on the
+                  synthetic bench scene: the trace through sdf_mlp
+  4. eval         eval-mode render of one view's 4096 rays; a small render
+                  through the kernel against one through the plain field
+  5. train_fused  phases 3 in bench_phaseB_fused: the fused march, secant
+                  and in-kernel-PE SDF-MLP kernels, and no sdf_mlp
+  6. eval_fused   phase 4 in bench_phaseB_fused
+Every kernel count is set to 0 just before each of phases 3-6 and read just
+after it. The line before the last is a JSON object listing each kernel;
+the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
+and prints no result.
 """
 import copy
 import dataclasses
@@ -25,8 +31,12 @@ import sys
 import time
 
 B, P = 8, 4096                 # the bench shapes: 8 images x 4096 rays
-N_KERNEL = 65537               # ragged row count for the kernel check
+N_KERNEL = 65537               # ragged row count for the SDF-MLP checks
 TOL = 1e-4                     # max |kernel - plain| on |sdf| <~ 1, f32
+# secant roots: |dz| <= 1e-4 + 1e-4 |z| (it divides by SDF differences)
+SECANT_ATOL = SECANT_RTOL = 1e-4
+MARCH_AGREE = 0.999            # share of rays whose unfinished masks agree
+MARCH_TOL = 1e-4               # |dt| where they agree
 WARMUP, TIMED = 3, 5
 PEAK_F32 = 67e12               # H100 SXM, f32 outside the tensor cores
 PEAK_BF16 = 989e12             # H100 SXM, dense bf16 tensor cores
@@ -52,6 +62,14 @@ def cuda_ms(fn, iters=10):
     return e0.elapsed_time(e1) / iters
 
 
+def bound(flops, nbytes):
+    """(least ms for the work on one H100 at its f32 peak, what bounds
+    it)."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
 def bench_config():
     """The configuration the JAX package's bench.py builds, in the port."""
     from mvsdf_tpu_torch.config import MVSDFConfig, TrainConfig
@@ -68,6 +86,15 @@ def bench_config():
         supervised_compact_frac=(0.375,),
         implicit=dataclasses.replace(m.implicit, bf16_activations=True))
     return dataclasses.replace(cfg, model=model)
+
+
+def fused_config():
+    """bench_phaseB_fused: bench.py with MVSDF_BENCH_MARCH=1,
+    MVSDF_BENCH_INKPE=1 and MVSDF_BENCH_SECANT=1, in the port."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_pallas_march=True, use_pallas_secant=True,
+        pallas_in_kernel_pe=True))
 
 
 def library_chain(net, x):
@@ -89,6 +116,257 @@ def library_chain(net, x):
         h = F.softplus(F.linear(h, W.T, layer.b), beta=100)
 
 
+def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
+                 library_ms):
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[kernel] {name} {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}; "
+        f"{flops / 1e9:.1f} GFLOP -> bound {bound_ms:.3f} ms at f32 peak "
+        f"({flops / PEAK_BF16 * 1e3:.3f} ms at bf16 peak), by {bound_by}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    return {"name": name, "route": "cuda",
+            "source": f"mvsdf_tpu_torch/tracing/kernels/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_sdf_mlps(net, packed, x, pe, weight_bytes):
+    """sdf_mlp on pe and sdf_mlp_xyz on x, each against its plain version
+    through its wrapper (the counts are zeroed before the main path)."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    L = net.cfg.multires
+    flops = K.flops_per_point(net.cfg) * N_KERNEL
+    library_ms = cuda_ms(lambda: library_chain(net, x))
+    out = []
+    for name, fn, ref_fn, inp, replaces in (
+            ("sdf_mlp", lambda: K.sdf_mlp(packed, pe),
+             lambda: K.sdf_mlp_reference(packed, pe), pe,
+             "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205"),
+            ("sdf_mlp_xyz", lambda: K.sdf_mlp_xyz(packed, L, x),
+             lambda: K.sdf_mlp_xyz_reference(packed, L, x), x,
+             "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205 (in_kernel_pe, "
+             "_make_pe_kernel :137)")):
+        got, ref = fn(), ref_fn()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        log(f"[kernel] {name} N={N_KERNEL}: max|kernel - plain| = {err:.3e}"
+            f" (tolerance {TOL:g}), max|sdf| = {ref.abs().max().item():.3f}")
+        if not (err <= TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{name} disagrees with its plain version:"
+                                 f" {err}")
+        nbytes = 4 * (inp.numel() + N_KERNEL) + weight_bytes
+        out.append(kernel_entry(name, "sdf_mlp.cu", replaces, err,
+                                cuda_ms(fn), cuda_ms(ref_fn), flops, nbytes,
+                                library_ms))
+    return out
+
+
+def bench_rays(batch, tcfg):
+    """The bench batch's 32,768 rays and their bounding-sphere
+    intersection, as the trace computes them."""
+    from mvsdf_tpu_torch.geometry.cameras import get_camera_params
+    from mvsdf_tpu_torch.tracing.sphere_trace import sphere_intersection
+    dirs, loc = get_camera_params(batch["uv"], batch["pose"],
+                                  batch["intrinsics"])
+    org = loc[:, None, :].expand(dirs.shape).reshape(-1, 3).contiguous()
+    dirs = dirs.reshape(-1, 3).contiguous()
+    mi, t_near, t_far = sphere_intersection(org, dirs,
+                                            tcfg.object_bounding_sphere)
+    return org, dirs, mi, t_near, t_far
+
+
+def check_march(icfg, tcfg, packed, rays, weight_bytes):
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    L = icfg.multires
+    dev = rays[0].device
+    rows = torch.zeros(2, dtype=torch.int64, device=dev)
+    rows_ref = torch.zeros_like(rows)
+    got = M.sphere_march(tcfg, packed, L, *rays, rows=rows)
+    ref = M.sphere_march_reference(tcfg, packed, L, *rays, rows=rows_ref)
+    torch.cuda.synchronize()
+    agree = got[0] == ref[0]
+    share = agree.float().mean().item()
+    err = max((a - b)[agree].abs().max().item()
+              for a, b in zip(got[1:], ref[1:]))
+    finite = all(torch.isfinite(a).all() for a in got[1:])
+    rows, rows_ref = rows.tolist(), rows_ref.tolist()
+    R = rays[2].numel()
+    log(f"[kernel] sphere_march R={R} ({int(rays[2].sum())} meet the "
+        f"sphere): unfinished masks agree on {share:.5f} (>= {MARCH_AGREE})"
+        f", max|dt| where they agree = {err:.3e} (tolerance {MARCH_TOL:g})"
+        f"; unfinished {int(got[0].sum())}, hits "
+        f"{int((got[1] < got[2]).sum())}; rows evaluated / used: kernel "
+        f"{rows[0]} / {rows[1]}, plain {rows_ref[0]} / {rows_ref[1]}")
+    if share < MARCH_AGREE or err > MARCH_TOL or not finite:
+        raise AssertionError("sphere_march disagrees with its plain version")
+    ms = cuda_ms(lambda: M.sphere_march(tcfg, packed, L, *rays))
+    plain_ms = cuda_ms(lambda: M.sphere_march_reference(tcfg, packed, L,
+                                                        *rays), iters=2)
+    flops = K.flops_per_point(icfg) * rows[1]
+    nbytes = R * (24 + 1 + 8 + 9) + weight_bytes
+    return kernel_entry("sphere_march", "march.cu",
+                        "mvsdf_tpu/tracing/pallas/march_kernel.py:258", err,
+                        ms, plain_ms, flops, nbytes, None)
+
+
+def check_secant(icfg, tcfg, packed, rays, weight_bytes):
+    """Brackets from a plain 100-sample pass over the bench rays: each
+    ray's first sign crossing, as the trace's sampler picks it."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
+    L = icfg.multires
+    org, dirs, mi, t_near, t_far = rays
+    o, d = org[mi], dirs[mi]
+    S_ = tcfg.n_steps
+    ts = t_near[mi][:, None] + torch.linspace(
+        0, 1, S_, device=org.device) * (t_far - t_near)[mi][:, None]
+    pts = (o[:, None] + ts[..., None] * d[:, None]).reshape(-1, 3)
+    v = torch.cat([K.sdf_mlp_xyz_reference(packed, L, c)
+                   for c in pts.split(1 << 18)]).reshape(-1, S_)
+    weight = torch.arange(S_, 0, -1, dtype=v.dtype, device=v.device)
+    ind = torch.argmin(torch.sign(v) * weight, dim=-1)
+    r = torch.nonzero((v.gather(1, ind[:, None])[:, 0] < 0) & (ind > 0)
+                      )[:, 0]
+    i = ind[r]
+    args = (o[r].contiguous(), d[r].contiguous(), ts[r, i - 1], ts[r, i],
+            v[r, i - 1], v[r, i])
+    n = r.numel()
+    if n == 0:
+        raise AssertionError("no bench ray crosses the surface")
+    k = tcfg.n_secant_steps
+    got = S.secant(packed, L, k, *args)
+    ref = S.secant_reference(packed, L, k, *args)
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    log(f"[kernel] secant on {n} bracketed bench rays: max|dz| = {err:.3e},"
+        f" worst |dz| / (atol + rtol |z|) = "
+        f"{(diff / (SECANT_ATOL + SECANT_RTOL * ref.abs())).max().item():.3f}"
+        f" (<= 1)")
+    if not (diff <= SECANT_ATOL + SECANT_RTOL * ref.abs()).all():
+        raise AssertionError("secant disagrees with its plain version")
+    ms = cuda_ms(lambda: S.secant(packed, L, k, *args))
+    plain_ms = cuda_ms(lambda: S.secant_reference(packed, L, k, *args))
+    flops = K.flops_per_point(icfg) * n * k
+    nbytes = n * (36 + 4) + weight_bytes
+    return kernel_entry("secant", "secant.cu",
+                        "mvsdf_tpu/tracing/pallas/secant_kernel.py:137", err,
+                        ms, plain_ms, flops, nbytes, None)
+
+
+def counters():
+    from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
+    return {"sdf_mlp": K.sdf_mlp, "sdf_mlp_xyz": K.sdf_mlp_xyz,
+            "secant": S.secant, "sphere_march": M.sphere_march}
+
+
+def counts():
+    return {k: f.launches for k, f in counters().items()}
+
+
+def zero_counts():
+    for f in counters().values():
+        f.launches = 0
+
+
+def train(tag, cfg, batch, gen, dev, every_step, some_step, never):
+    """WARMUP + TIMED phase-B steps from the seed-0 weights; every kernel
+    in ``every_step`` must launch in each step, each in ``some_step`` in
+    one step at least, none in ``never``. Returns (state, launches)."""
+    import torch
+    from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
+    state = init_train_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg, phase_idx=1)
+    weights = cfg.schedule.weights(0.3)
+    per_step = []
+
+    def run(n):
+        for _ in range(n):
+            before = counts()
+            out = step(state, batch, weights, gen)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+        torch.cuda.synchronize()
+        return out
+
+    zero_counts()
+    t0 = time.perf_counter()
+    run(WARMUP)
+    log(f"[{tag}] warm-up {WARMUP} steps: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = run(TIMED)
+    dt = (time.perf_counter() - t0) / TIMED
+    launches = counts()
+    m = {k: float(v) for k, v in metrics.items()}
+    log(f"[{tag}] {dt * 1e3:.1f} ms/step, {B * P / dt:.1f} rays/s, hit "
+        f"{m['hit_frac']:.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"[{tag}] last step: " + json.dumps(
+        {k: round(v, 6) for k, v in m.items()}))
+    for k in counters():
+        log(f"[{tag}] {k} launches per step: {[s[k] for s in per_step]}")
+    if not all(torch.isfinite(torch.tensor(list(m.values())))):
+        raise AssertionError(f"non-finite training metrics: {m}")
+    for k in every_step:
+        if min(s[k] for s in per_step) == 0:
+            raise AssertionError(f"a {tag} step never launched {k}")
+    for k in some_step:
+        if launches[k] == 0:
+            raise AssertionError(f"no {tag} step launched {k}")
+    for k in never:
+        if launches[k]:
+            raise AssertionError(f"{tag} launched {k}")
+    return state, launches
+
+
+def eval_render(tag, cfg, state, batch, must):
+    """An eval render of one view through ``cfg``; then 256 of its rays
+    against the plain f32 field with the same weights."""
+    import torch
+    from mvsdf_tpu_torch.rendering.renderer import render_forward
+    view = {k: v[:1] for k, v in batch.items()}
+    zero_counts()
+    with torch.no_grad():
+        out = render_forward(cfg.model, state.net, view, training=False)
+    torch.cuda.synchronize()
+    launches = counts()
+    rgb = out.rgb_values
+    log(f"[{tag}] rgb {tuple(rgb.shape)}, hit "
+        f"{out.network_object_mask.float().mean().item():.4f}, launches "
+        f"{launches}")
+    if rgb.shape != (1, P, 3) or not torch.isfinite(rgb).all():
+        raise AssertionError("eval render is not finite RGB of (1, P, 3)")
+    for k in must:
+        if launches[k] == 0:
+            raise AssertionError(f"the {tag} render never launched {k}")
+    small = {"uv": batch["uv"][:1, :256], "pose": batch["pose"][:1],
+             "intrinsics": batch["intrinsics"][:1],
+             "object_mask": batch["object_mask"][:1, :256]}
+    plain_net = copy.deepcopy(state.net)
+    plain_net.implicit.cfg = dataclasses.replace(cfg.model.implicit,
+                                                 bf16_activations=False)
+    plain_cfg = dataclasses.replace(cfg.model, use_pallas_trace=False)
+    with torch.no_grad():
+        a = render_forward(cfg.model, state.net, small, training=False)
+        b = render_forward(plain_cfg, plain_net, small, training=False)
+    agree = (a.network_object_mask == b.network_object_mask)
+    both = agree & a.network_object_mask
+    derr = (a.dists - b.dists)[both].abs().max().item() if both.any() else 0
+    log(f"[{tag}] kernels vs plain field on 256 rays: hit masks agree on "
+        f"{agree.float().mean().item():.4f}, max |d dists| on common hits "
+        f"{derr:.2e}")
+    if agree.float().mean().item() < 0.99 or derr > 1e-3:
+        raise AssertionError("traced render through the kernels disagrees "
+                             "with the plain field")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -108,130 +386,50 @@ def main():
 
     from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
-    from mvsdf_tpu_torch.rendering.renderer import render_forward
+    from mvsdf_tpu_torch.tracing.kernels import build
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
-    from mvsdf_tpu_torch.train.step import (init_params, init_train_state,
-                                            make_train_step)
+    from mvsdf_tpu_torch.train.step import init_params
 
     # 1. build
     t0 = time.perf_counter()
-    K.build()
-    log(f"[build] sdf_mlp.cu built in {time.perf_counter() - t0:.2f} s")
+    build.build(verbose=True)
+    log(f"[build] {build.library_path()} built in "
+        f"{time.perf_counter() - t0:.2f} s")
 
-    # 2. kernel against its plain version
-    cfg = bench_config()
-    icfg = cfg.model.implicit
+    # 2. kernels against their plain versions
+    cfg, fcfg = bench_config(), fused_config()
+    icfg, tcfg = cfg.model.implicit, cfg.model.tracer
     net = init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    with torch.no_grad():
-        packed = K.pack_sdf_weights(net.implicit)
-        x = torch.rand((N_KERNEL, 3), generator=gen, device=dev) * 2 - 1
-        pe = positional_encoding(x, icfg.multires).contiguous()
-        # through the wrapper; the counts are zeroed before the main path
-        got = K.sdf_mlp(packed, pe)
-        ref = K.sdf_mlp_reference(packed, pe)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        log(f"[kernel] sdf_mlp N={N_KERNEL}: max|kernel - plain| = {err:.3e}"
-            f" (tolerance {TOL:g}), max|sdf| = {ref.abs().max().item():.3f}")
-        if not (err <= TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"sdf_mlp disagrees with its plain version:"
-                                 f" {err}")
-        ms = cuda_ms(lambda: K.sdf_mlp(packed, pe))
-        plain_ms = cuda_ms(lambda: K.sdf_mlp_reference(packed, pe))
-        library_ms = cuda_ms(lambda: library_chain(net.implicit, x))
-    flops = K.flops_per_point(icfg) * N_KERNEL
-    nbytes = 4 * (pe.numel() + N_KERNEL + sum(
-        t.numel() for t in packed if isinstance(t, torch.Tensor)))
-    bound_ms = max(flops / PEAK_F32, nbytes / HBM_BYTES_S) * 1e3
-    log(f"[kernel] sdf_mlp {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-        f"chain {library_ms:.3f} ms; {flops / 1e9:.1f} GFLOP -> bound "
-        f"{bound_ms:.3f} ms at f32 peak ({flops / PEAK_BF16 * 1e3:.3f} ms "
-        f"at bf16 peak); {flops / ms / 1e9:.1f} TFLOP/s achieved")
-
-    # 3. training: the main path
     scene = make_scene(n_images=B, n_pix=P, feat_ch=32, img_hw=96,
                        depth_hw=48)
     batch = scene_to_torch(scene, dev)
-    state = init_train_state(cfg, seed=0, device=dev)
-    step = make_train_step(cfg, phase_idx=1)
-    weights = cfg.schedule.weights(0.3)
-    K.sdf_mlp.launches = 0
-    per_step = []
-
-    def run(n):
-        for _ in range(n):
-            before = K.sdf_mlp.launches
-            out = step(state, batch, weights, gen)
-            per_step.append(K.sdf_mlp.launches - before)
-        torch.cuda.synchronize()
-        return out
-
-    t0 = time.perf_counter()
-    run(WARMUP)
-    log(f"[train] warm-up {WARMUP} steps: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    metrics = run(TIMED)
-    dt = (time.perf_counter() - t0) / TIMED
-    launches = K.sdf_mlp.launches
-    m = {k: float(v) for k, v in metrics.items()}
-    log(f"[train] {dt * 1e3:.1f} ms/step, {B * P / dt:.1f} rays/s, hit "
-        f"{m['hit_frac']:.4f}, sdf_mlp launches/step "
-        f"{launches / (WARMUP + TIMED):.1f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    log("[train] last step: " + json.dumps(
-        {k: round(v, 6) for k, v in m.items()}))
-    if not all(torch.isfinite(torch.tensor(list(m.values())))):
-        raise AssertionError(f"non-finite training metrics: {m}")
-    log(f"[train] sdf_mlp launches per step: {per_step}")
-    if min(per_step) == 0:
-        raise AssertionError("a training step never launched sdf_mlp")
-
-    # 4. eval render of one view, through the kernel
-    view = {k: v[:1] for k, v in batch.items()}
-    K.sdf_mlp.launches = 0
     with torch.no_grad():
-        out = render_forward(cfg.model, state.net, view, training=False)
-    torch.cuda.synchronize()
-    eval_launches = K.sdf_mlp.launches
-    rgb = out.rgb_values
-    log(f"[eval] rgb {tuple(rgb.shape)}, hit "
-        f"{out.network_object_mask.float().mean().item():.4f}, sdf_mlp "
-        f"launches {eval_launches}")
-    if rgb.shape != (1, P, 3) or not torch.isfinite(rgb).all():
-        raise AssertionError("eval render is not finite RGB of (1, P, 3)")
-    if eval_launches == 0:
-        raise AssertionError("the eval render never launched sdf_mlp")
-    # a small render through the kernel against one through the plain f32
-    # field (same weights)
-    small = {"uv": batch["uv"][:1, :256], "pose": batch["pose"][:1],
-             "intrinsics": batch["intrinsics"][:1],
-             "object_mask": batch["object_mask"][:1, :256]}
-    plain_net = copy.deepcopy(state.net)
-    plain_net.implicit.cfg = dataclasses.replace(icfg, bf16_activations=False)
-    plain_cfg = dataclasses.replace(cfg.model, use_pallas_trace=False)
-    with torch.no_grad():
-        a = render_forward(cfg.model, state.net, small, training=False)
-        b = render_forward(plain_cfg, plain_net, small, training=False)
-    agree = (a.network_object_mask == b.network_object_mask)
-    both = agree & a.network_object_mask
-    derr = (a.dists - b.dists)[both].abs().max().item() if both.any() else 0
-    log(f"[eval] kernel vs plain field on 256 rays: hit masks agree on "
-        f"{agree.float().mean().item():.4f}, max |d dists| on common hits "
-        f"{derr:.2e}")
-    if agree.float().mean().item() < 0.99 or derr > 1e-3:
-        raise AssertionError("traced render through the kernel disagrees "
-                             "with the plain field")
+        packed = K.pack_sdf_weights(net.implicit)
+        weight_bytes = 4 * sum(t.numel() for t in packed
+                               if isinstance(t, torch.Tensor))
+        x = torch.rand((N_KERNEL, 3), generator=gen, device=dev) * 2 - 1
+        pe = positional_encoding(x, icfg.multires).contiguous()
+        entries = check_sdf_mlps(net.implicit, packed, x, pe, weight_bytes)
+        rays = bench_rays(batch, tcfg)
+        entries.append(check_secant(icfg, tcfg, packed, rays, weight_bytes))
+        entries.append(check_march(icfg, tcfg, packed, rays, weight_bytes))
 
-    print(json.dumps({"kernels": [{
-        "name": "sdf_mlp", "route": "cuda",
-        "source": "mvsdf_tpu_torch/tracing/kernels/csrc/sdf_mlp.cu",
-        "replaces": "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if flops / PEAK_F32 >= nbytes / HBM_BYTES_S
-        else "bytes",
-        "library_ms": library_ms}]}))
+    # 3-6. the main path in both trace configurations
+    state, launches = train("train", cfg, batch, gen, dev,
+                            every_step=(), some_step=("sdf_mlp",),
+                            never=("sdf_mlp_xyz", "secant", "sphere_march"))
+    eval_render("eval", cfg, state, batch, must=("sdf_mlp",))
+    state, f_launches = train("train_fused", fcfg, batch, gen, dev,
+                              every_step=("sphere_march",),
+                              some_step=("sdf_mlp_xyz", "secant"),
+                              never=("sdf_mlp",))
+    eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
+    for e in entries:
+        e["launches"] = (launches if e["name"] == "sdf_mlp"
+                         else f_launches)[e["name"]]
+
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

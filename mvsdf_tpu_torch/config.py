@@ -132,8 +132,9 @@ class ModelConfig:
     # Trace through the fused SDF-MLP kernel (tracing/kernels/sdf_mlp.py);
     # on a CPU tensor the kernel's plain version runs instead.
     use_pallas_trace: bool = False
-    # Fused march / secant kernels and the in-kernel PE variant are not
-    # ported yet: True raises.
+    # Read only with use_pallas_trace, as in the JAX package: the fused
+    # march (march_kernel.py) and secant (secant_kernel.py) kernels, and
+    # the SDF-MLP kernel computing the positional encoding itself.
     use_pallas_march: bool = False
     use_pallas_secant: bool = False
     pallas_block: int = 1024           # no effect here

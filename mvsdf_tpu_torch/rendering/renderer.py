@@ -8,7 +8,9 @@ feed the carving and eikonal losses:
   dsurf_jitter  same points + U(-0.1, 0.1) jitter (phase A)
 
 The trace runs under ``torch.no_grad()`` on the current parameters, through
-the fused SDF-MLP kernel when ``ModelConfig.use_pallas_trace`` is set.
+the fused SDF-MLP kernel when ``ModelConfig.use_pallas_trace`` is set, and
+then through the fused march and secant kernels and the in-kernel
+positional encoding where their flags ask for them.
 Random draws come from a ``torch.Generator``; the ``noise=`` dict replays
 given draws instead (``minimal_steps``, ``eik_points``,
 ``dsurf_jitter_noise``, ``dsurf_on_idx``, ``dsurf_jitter_idx``) so tests can
@@ -28,7 +30,9 @@ from ..fields.radiance import render_apply
 from ..fields.sdf import full_value_and_grad, implicit_apply, sdf_apply
 from ..geometry import projections as proj
 from ..geometry.cameras import get_camera_params
-from ..tracing.kernels.sdf_mlp import pack_sdf_weights, sdf_mlp
+from ..tracing.kernels.march_kernel import sphere_march
+from ..tracing.kernels.sdf_mlp import pack_sdf_weights, sdf_mlp, sdf_mlp_xyz
+from ..tracing.kernels.secant_kernel import secant
 from ..tracing.sphere_trace import TraceResult, trace_rays
 from .implicit_diff import differentiable_surface_points
 
@@ -108,26 +112,42 @@ def _dsurf_samples(cfg: ModelConfig, inputs, n_dsurf, generator, noise):
 
 def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                   object_mask, training, min_steps) -> TraceResult:
-    """The no-grad trace on the current parameters, through the fused
-    SDF-MLP kernel when cfg.use_pallas_trace is set."""
-    if cfg.use_pallas_march or cfg.use_pallas_secant or \
-            cfg.pallas_in_kernel_pe:
-        raise NotImplementedError(
-            "the fused march, fused secant and in-kernel PE kernels are not "
-            "ported yet")
+    """The no-grad trace on the current parameters. With
+    cfg.use_pallas_trace, its SDF evaluations go through the fused SDF-MLP
+    kernel (with the positional encoding in the kernel when
+    cfg.pallas_in_kernel_pe), and cfg.use_pallas_march and
+    cfg.use_pallas_secant hand the march and the secant to their fused
+    kernels; all of them share one packing of the weights. Without
+    use_pallas_trace those three flags are not read, as in the JAX
+    package. TracerConfig.sample_chunk has no effect on either path."""
+    tcfg = cfg.tracer
+    march_fn = secant_fn = None
     with torch.no_grad():
         if cfg.use_pallas_trace:
             packed = pack_sdf_weights(net.implicit)
             multires = net.implicit.cfg.multires
-
-            def sdf_fn(x):
-                pe = positional_encoding(x.reshape(-1, 3), multires)
-                return sdf_mlp(packed, pe).reshape(x.shape[:-1])
+            if cfg.pallas_in_kernel_pe:
+                def sdf_fn(x):
+                    return sdf_mlp_xyz(packed, multires, x.reshape(-1, 3)
+                                       ).reshape(x.shape[:-1])
+            else:
+                def sdf_fn(x):
+                    pe = positional_encoding(x.reshape(-1, 3), multires)
+                    return sdf_mlp(packed, pe).reshape(x.shape[:-1])
+            if cfg.use_pallas_march:
+                def march_fn(o, d, mi, t_near, t_far):
+                    return sphere_march(tcfg, packed, multires, o, d, mi,
+                                        t_near, t_far)
+            if cfg.use_pallas_secant:
+                def secant_fn(o, d, z_lo, z_hi, s_lo, s_hi):
+                    return secant(packed, multires, tcfg.n_secant_steps, o,
+                                  d, z_lo, z_hi, s_lo, s_hi)
         else:
             def sdf_fn(x):
                 return sdf_apply(net.implicit, x)
-        return trace_rays(cfg.tracer, sdf_fn, org, dirs, object_mask,
-                          training=training, minimal_steps=min_steps)
+        return trace_rays(tcfg, sdf_fn, org, dirs, object_mask,
+                          training=training, minimal_steps=min_steps,
+                          march_fn=march_fn, secant_fn=secant_fn)
 
 
 def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,

@@ -1,41 +1,43 @@
-"""Fused SDF-MLP for the no-grad trace: packing, plain version, CUDA wrapper.
+"""Fused SDF-MLP for the no-grad trace: packing, plain versions, CUDA
+wrappers.
 
-Replaces the TPU kernel ``mvsdf_tpu/tracing/pallas/sdf_kernel.py``
-(``pallas_sdf_apply``, ``pl.pallas_call`` at line 205). The kernel is
-``csrc/sdf_mlp.cu``; its header says what bounds it (operations: ~3.67
-MFLOP per point for the full-size net) and what its design does about it.
+Two kernels, both in ``csrc/sdf_mlp.cu`` on the MLP tile of
+``csrc/mlp_tile.cuh``:
+
+- ``sdf_mlp`` takes the positional encoding pe (N, d_pe). It replaces the
+  TPU kernel ``mvsdf_tpu/tracing/pallas/sdf_kernel.py`` (``pallas_sdf_apply``,
+  ``pl.pallas_call`` at line 205).
+- ``sdf_mlp_xyz`` takes the points x (N, 3) and computes the encoding in
+  the kernel. It replaces the same call with ``in_kernel_pe=True``
+  (``_make_pe_kernel``, lines 137-157).
+
+The kernel sources say what bounds them (operations: ~3.67 MFLOP per point
+for the full-size net) and what their design does about it.
 
 - ``pack_sdf_weights`` folds weight norm into effective weights once per
-  step and zero-pads every hidden layer to the width H.
-- ``sdf_mlp_reference`` is the plain PyTorch version of the kernel's
-  arithmetic. The tests use it, and the chip smoke run holds the kernel
-  against it.
-- ``sdf_mlp`` runs the plain version for a tensor on the CPU, and for a
-  CUDA tensor launches the kernel or raises. ``sdf_mlp.launches`` counts
-  kernel launches.
+  step and zero-pads every hidden layer to the width H. The fused secant
+  and march kernels take the same packing.
+- ``sdf_mlp_reference`` and ``sdf_mlp_xyz_reference`` are the plain
+  PyTorch versions of the kernels' arithmetic. The tests use them, and the
+  chip smoke run holds the kernels against them.
+- ``sdf_mlp`` and ``sdf_mlp_xyz`` run the plain version for a tensor on the
+  CPU, and for a CUDA tensor launch the kernel or raise. Their
+  ``.launches`` count kernel launches.
 
-The kernel is built from the source at first use with ``nvcc`` into
-``_build/`` beside this file (a shared library with a plain C interface,
-loaded with ctypes).
+The kernels are built at first use (``build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ...fields.embedder import embed_dim, positional_encoding
 from ...fields.sdf import ImplicitConfig, ImplicitNetwork, softplus100
+from . import build
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "sdf_mlp.cu")
-BUILD_DIR = os.path.join(_HERE, "_build")
 MAX_H = 512      # two columns per thread, 256 threads
 MAX_HIDDEN = 32  # skip layers are a 32-bit mask
 
@@ -139,87 +141,93 @@ def sdf_mlp_reference(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     return h @ packed.w_out + packed.b_out
 
 
-# --- build and load ---------------------------------------------------------
-
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the SDF kernel is built from "
-                       f"{SOURCE} with the CUDA toolkit")
+def sdf_mlp_xyz_reference(packed: PackedSDF, multires: int,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the in-kernel-PE kernel: x (N, 3) f32 ->
+    sdf (N,)."""
+    return sdf_mlp_reference(packed, positional_encoding(x, multires))
 
 
-def library_path() -> str:
-    """Path of the built library, named by a hash of the source so an
-    edited source is rebuilt."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libsdf_mlp_{digest}.so")
+# --- launching ------------------------------------------------------------
+
+PTR, INT = ctypes.c_void_p, ctypes.c_int
+# the packed weights as every C entry point takes them
+WEIGHT_ARGTYPES = (INT, PTR, PTR, PTR, PTR, INT, ctypes.c_uint, PTR, PTR, PTR,
+                   INT)
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/sdf_mlp.cu for sm_90a (no-op when already built);
-    returns the library path."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, path)
-    return path
+def on_cpu(t: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    tensor (the kernel runs); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return False
 
 
-def _library():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.sdf_mlp_forward
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, i, i, p, p, p, p, i, ctypes.c_uint, p, p, p,
-                           i, p, p]
-            fn.restype = i
-            _LIB = lib
-        return _LIB
+def check_tensors(device: torch.device, dtype=torch.float32, **tensors):
+    """Raises unless every tensor is contiguous, of ``dtype``, on
+    ``device``: the kernels take raw pointers."""
+    for name, t in tensors.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} on {device}")
+
+
+def check_multires(packed: PackedSDF, multires: int):
+    if embed_dim(multires) != packed.d_pe:
+        raise ValueError(f"multires {multires} encodes {embed_dim(multires)}"
+                         f" lanes, the weights take {packed.d_pe}")
+
+
+def weight_args(packed: PackedSDF, device: torch.device) -> list:
+    """The packed weights as the C entry points take them (WEIGHT_ARGTYPES),
+    after checking they are contiguous f32 on ``device``."""
+    check_tensors(device, **{f"packed.{n}": t for n, t in
+                             zip(PackedSDF._fields, packed)
+                             if isinstance(t, torch.Tensor)})
+    mask = sum(1 << j for j, s in enumerate(packed.skip) if s)
+    return [packed.d_pe, packed.w_in.data_ptr(), packed.b_in.data_ptr(),
+            packed.w_hid.data_ptr(), packed.b_hid.data_ptr(),
+            len(packed.skip), mask, packed.w_skip_pe.data_ptr(),
+            packed.w_out.data_ptr(), packed.b_out.data_ptr(), packed.H]
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _launch(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     n, d_pe = pe.shape
     if d_pe != packed.d_pe:
         raise ValueError(f"pe has {d_pe} lanes, the weights {packed.d_pe}")
-    for name, t in zip(PackedSDF._fields, packed):
-        if isinstance(t, torch.Tensor) and (
-                t.device != pe.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"packed.{name} must be contiguous f32 on "
-                             f"{pe.device}")
+    wargs = weight_args(packed, pe.device)
     out = torch.empty(n, dtype=torch.float32, device=pe.device)
     if n == 0:
         return out
-    mask = sum(1 << j for j, s in enumerate(packed.skip) if s)
-    stream = torch.cuda.current_stream(pe.device).cuda_stream
-    rc = _library().sdf_mlp_forward(
-        pe.data_ptr(), n, d_pe, packed.w_in.data_ptr(),
-        packed.b_in.data_ptr(), packed.w_hid.data_ptr(),
-        packed.b_hid.data_ptr(), len(packed.skip), mask,
-        packed.w_skip_pe.data_ptr(), packed.w_out.data_ptr(),
-        packed.b_out.data_ptr(), packed.H, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"sdf_mlp kernel launch failed: CUDA error {rc}")
+    fn = build.function("sdf_mlp_forward",
+                        (PTR, INT, *WEIGHT_ARGTYPES, PTR, PTR))
+    raise_on_error(fn(pe.data_ptr(), n, *wargs, out.data_ptr(),
+                      stream(pe.device)), "sdf_mlp")
+    return out
+
+
+def _launch_xyz(packed: PackedSDF, multires: int,
+                x: torch.Tensor) -> torch.Tensor:
+    wargs = weight_args(packed, x.device)
+    n = x.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    fn = build.function("sdf_mlp_xyz_forward",
+                        (PTR, INT, INT, *WEIGHT_ARGTYPES, PTR, PTR))
+    raise_on_error(fn(x.data_ptr(), n, multires, *wargs, out.data_ptr(),
+                      stream(x.device)), "sdf_mlp_xyz")
     return out
 
 
@@ -231,16 +239,36 @@ def sdf_mlp(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     ``sdf_mlp.launches``."""
     if pe.dim() != 2 or pe.dtype != torch.float32:
         raise ValueError("pe must be a 2-D f32 tensor")
-    if pe.device.type == "cpu":
+    if on_cpu(pe, "sdf_mlp"):
         return sdf_mlp_reference(packed, pe)
-    if pe.device.type != "cuda":
-        raise ValueError(f"sdf_mlp runs on cpu or cuda, not {pe.device}")
     out = _launch(packed, pe.contiguous())
-    sdf_mlp.launches += 1
+    sdf_mlp.launches += pe.shape[0] > 0
     return out
 
 
 sdf_mlp.launches = 0
+
+
+def sdf_mlp_xyz(packed: PackedSDF, multires: int,
+                x: torch.Tensor) -> torch.Tensor:
+    """SDF column of the packed MLP at the points x (N, 3) f32 -> (N,),
+    the positional encoding (``multires`` frequencies) computed in the
+    kernel.
+
+    A CPU tensor goes through ``sdf_mlp_xyz_reference``; a CUDA tensor
+    through the kernel (raising if it cannot run). Each kernel launch adds
+    one to ``sdf_mlp_xyz.launches``."""
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError("x must be an (N, 3) f32 tensor")
+    check_multires(packed, multires)
+    if on_cpu(x, "sdf_mlp_xyz"):
+        return sdf_mlp_xyz_reference(packed, multires, x)
+    out = _launch_xyz(packed, multires, x.contiguous())
+    sdf_mlp_xyz.launches += x.shape[0] > 0
+    return out
+
+
+sdf_mlp_xyz.launches = 0
 
 
 def flops_per_point(cfg: ImplicitConfig) -> int:

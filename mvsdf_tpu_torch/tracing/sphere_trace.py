@@ -11,7 +11,9 @@ rays (``compaction.compact_call_into``). Masked lanes are no-ops in the JAX
 formulation, so results are the same per ray.
 
 The ``lax.while_loop``s become Python loops that stop when no lane is
-active; each ``.any()`` test costs one host sync per iteration.
+active; each ``.any()`` test costs one host sync per iteration. The fused
+march and secant kernels (``trace_rays(march_fn=, secant_fn=)``) run those
+loops on the device instead.
 
 Stages:
   1. ray/bounding-sphere intersection
@@ -199,10 +201,10 @@ def _sample_points(org, dirs, t_lo, t_hi, steps):
 
 
 def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
-                   pts, sdf_val, training: bool):
+                   pts, sdf_val, training: bool, secant_fn=None):
     """Sampler post-processing on flat (N,) rays with samples (N, S): first
-    sign crossing, min-SDF fallback, secant. Returns (points, net_surface,
-    dists)."""
+    sign crossing, min-SDF fallback, secant (``secant_fn`` when given, on
+    the rays it refines only). Returns (points, net_surface, dists)."""
     S = cfg.n_steps
     weight = torch.arange(S, 0, -1, dtype=sdf_val.dtype,
                           device=sdf_val.device)
@@ -223,8 +225,12 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
         z_low = _take(ts, ind_lo)
         sdf_low = _take(sdf_val, ind_lo)
         s = secant_sel
-        z_pred = _secant(cfg, sdf_fn, org[s], dirs[s], z_low[s], z_high[s],
-                         sdf_low[s], sdf_high[s])
+        args = (org[s], dirs[s], z_low[s], z_high[s], sdf_low[s],
+                sdf_high[s])
+        if secant_fn is None:
+            z_pred = _secant(cfg.n_secant_steps, sdf_fn, *args)
+        else:
+            z_pred = secant_fn(*args)
         d = d.clone()
         p = p.clone()
         d[s] = z_pred
@@ -232,9 +238,9 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
     return p, net_surface, d
 
 
-def _secant(cfg: TracerConfig, sdf_fn, org, dirs, z_low, z_high, sdf_low,
+def _secant(n_steps: int, sdf_fn, org, dirs, z_low, z_high, sdf_low,
             sdf_high):
-    """Fixed-iteration bracketed secant root find on (N,) rays; the
+    """Bracketed secant root find, n_steps steps, on (N,) rays; the
     denominator is kept at least 1e-12 in magnitude."""
     def z_of(sl, sh, zl, zh):
         denom = sh - sl
@@ -243,7 +249,7 @@ def _secant(cfg: TracerConfig, sdf_fn, org, dirs, z_low, z_high, sdf_low,
         return -sl * (zh - zl) / denom + zl
 
     z_pred = z_of(sdf_low, sdf_high, z_low, z_high)
-    for _ in range(cfg.n_secant_steps):
+    for _ in range(n_steps):
         sdf_mid = sdf_fn(org + z_pred[:, None] * dirs)
         pos = sdf_mid > 0
         neg = sdf_mid < 0
@@ -261,12 +267,12 @@ def _linspace(cfg: TracerConfig, like):
 
 
 def _ray_sampler(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, t_min,
-                 t_max, training: bool):
+                 t_max, training: bool, secant_fn=None):
     """Uniform interval sampling + secant on flat (N,) rays."""
     ts, pts = _sample_points(org, dirs, t_min, t_max, _linspace(cfg, t_min))
     sdf_val = sdf_fn(pts)
     return _sampler_logic(cfg, sdf_fn, org, dirs, object_mask, ts, pts,
-                          sdf_val, training)
+                          sdf_val, training, secant_fn)
 
 
 def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
@@ -279,7 +285,8 @@ def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
 
 
 def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
-                      is_smp, t_lo, t_hi, steps01, training: bool):
+                      is_smp, t_lo, t_hi, steps01, training: bool,
+                      secant_fn=None):
     """One n_steps-sample evaluation serving both fallback stages: sampler
     rows (is_smp) use the uniform linspace, fill rows the stratified
     steps01. Returns (points, net_surface, dists) on flat (N,) rays."""
@@ -288,7 +295,8 @@ def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     ts, pts = _sample_points(org, dirs, t_lo, t_hi, steps)
     sdf_val = sdf_fn(pts)
     smp_p, smp_net, smp_d = _sampler_logic(
-        cfg, sdf_fn, org, dirs, object_mask, ts, pts, sdf_val, training)
+        cfg, sdf_fn, org, dirs, object_mask, ts, pts, sdf_val, training,
+        secant_fn)
     idx = torch.argmin(sdf_val, dim=-1)
     mn_p, mn_d = _take(pts, idx), _take(ts, idx)
     p = torch.where(is_smp[:, None], smp_p, mn_p)
@@ -301,27 +309,47 @@ def _fracs(f):
         ((f,) if f > 0 else ())
 
 
-@torch.no_grad()
-def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
-               training: bool, generator: Optional[torch.Generator] = None,
-               minimal_steps: Optional[torch.Tensor] = None) -> TraceResult:
-    """Full tracing pipeline. org, dirs (L..., 3); object_mask (L...) bool.
-    ``sdf_fn`` maps points (..., 3) to SDF values (...). ``minimal_steps``
-    (n_steps,) in [0, 1) fixes the stratified fill samples; otherwise they
-    are drawn from ``generator`` when the training trace needs them."""
-    lead = org.shape[:-1]
-    R = org[..., 0].numel()
-    r_sph = cfg.object_bounding_sphere
+def sphere_intersection(org, dirs, radius: float):
+    """Where the rays org + t dirs (L..., 3) meet the bounding sphere:
+    (mask_intersect, t_near, t_far), each (L...); t is clamped at 0 and is
+    0 on rays that miss."""
     d_dot_o = torch.sum(dirs * org, dim=-1)
-    under = d_dot_o ** 2 - (torch.sum(org ** 2, dim=-1) - r_sph ** 2)
+    under = d_dot_o ** 2 - (torch.sum(org ** 2, dim=-1) - radius ** 2)
     mask_intersect = under > 0
     zero = torch.zeros_like(under)
     sq = torch.sqrt(torch.where(mask_intersect, under, zero))
     t_near = torch.where(mask_intersect, -d_dot_o - sq, zero).clamp_min(0.0)
     t_far = torch.where(mask_intersect, -d_dot_o + sq, zero).clamp_min(0.0)
+    return mask_intersect, t_near, t_far
 
-    unfin_s, t_s, t_e = _sphere_trace(cfg, sdf_fn, org, dirs, mask_intersect,
-                                      t_near, t_far)
+
+@torch.no_grad()
+def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
+               training: bool, generator: Optional[torch.Generator] = None,
+               minimal_steps: Optional[torch.Tensor] = None,
+               march_fn=None, secant_fn=None) -> TraceResult:
+    """Full tracing pipeline. org, dirs (L..., 3); object_mask (L...) bool.
+    ``sdf_fn`` maps points (..., 3) to SDF values (...). ``minimal_steps``
+    (n_steps,) in [0, 1) fixes the stratified fill samples; otherwise they
+    are drawn from ``generator`` when the training trace needs them.
+
+    ``march_fn(org, dirs, mask_intersect, t_near, t_far) -> (unfin_s, t_s,
+    t_e)`` replaces the march (``_sphere_trace``; the march compaction
+    schedule then does not apply), and ``secant_fn(org, dirs, z_low,
+    z_high, sdf_low, sdf_high) -> z_pred`` the secant, on (N,) rays: the
+    fused kernels take these places."""
+    lead = org.shape[:-1]
+    R = org[..., 0].numel()
+    mask_intersect, t_near, t_far = sphere_intersection(
+        org, dirs, cfg.object_bounding_sphere)
+    zero = torch.zeros_like(t_near)
+
+    if march_fn is None:
+        unfin_s, t_s, t_e = _sphere_trace(cfg, sdf_fn, org, dirs,
+                                          mask_intersect, t_near, t_far)
+    else:
+        unfin_s, t_s, t_e = march_fn(org, dirs, mask_intersect, t_near,
+                                     t_far)
     min_dis = torch.where(mask_intersect, t_near, zero)
     max_dis = torch.where(mask_intersect, t_far, zero)
 
@@ -358,7 +386,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
         t_lo = torch.where(sampler_mask, t_s, min_dis)
         t_hi = torch.where(sampler_mask, t_e, max_dis)
         fn = lambda o, d, m, sm, lo, hi: _unified_fallback(
-            cfg, sdf_fn, o, d, m, sm, lo, hi, steps01, training)
+            cfg, sdf_fn, o, d, m, sm, lo, hi, steps01, training, secant_fn)
         p_f, net_f, d_f = compact_call_into(
             fn, flat(active),
             [flat(org), flat(dirs), flat(object_mask), flat(sampler_mask),
@@ -377,7 +405,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     smp_t_min = torch.where(sampler_mask, t_s, zero)
     smp_t_max = torch.where(sampler_mask, t_e, zero)
     fn = lambda o, d, m, lo, hi: _ray_sampler(cfg, sdf_fn, o, d, m, lo, hi,
-                                              training)
+                                              training, secant_fn)
     smpf = flat(sampler_mask)
     p_f, net_f, d_f = compact_call_into(
         fn, smpf, [flat(org), flat(dirs), flat(object_mask),

@@ -1,14 +1,19 @@
 """Where the port's training step spends its time on the GPU.
 
-Runs the bench configuration (chip_smoke.bench_config: full-width model,
-B=8 x P=4096 rays, phase B) and reports:
+Runs one of the two trace configurations of the bench step (full-width
+model, B=8 x P=4096 rays, phase B): bench_phaseB (chip_smoke.bench_config,
+the trace through the sdf_mlp kernel) or, with --fused, bench_phaseB_fused
+(chip_smoke.fused_config: the fused march, secant and in-kernel-PE
+SDF-MLP kernels). Reports:
   - wall time per step, and the part spent in the no-grad trace
     (renderer._frozen_trace, synchronized before and after);
-  - sdf_mlp launches and rows per step (the trace's SDF evaluations);
-  - a torch.profiler window: device time by kernel, the sdf_mlp kernel's
-    share, and the device's busy share of the window.
+  - for each trace kernel, launches and MLP rows per step (for the march,
+    the rows its blocks evaluated and the rows the march used, from the
+    kernel's own counter);
+  - a torch.profiler window: device time by kernel, each trace kernel's
+    device time, and the device's busy share of the window.
 
-    python3 scripts/port_step_profile.py [--steps 5] [--out result.json]
+    python3 scripts/port_step_profile.py [--fused] [--steps 5] [--out f]
 
 Prints the result as JSON (and writes it to --out if given). Needs a GPU.
 """
@@ -22,9 +27,17 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+# kernel -> the name its device kernel carries in a profile
+DEVICE_NAMES = {"sdf_mlp": "sdf_mlp_kernel",
+                "sdf_mlp_xyz": "sdf_mlp_xyz_kernel",
+                "secant": "secant_kernel", "sphere_march": "march_kernel"}
+
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fused", action="store_true",
+                    help="profile bench_phaseB_fused instead of "
+                         "bench_phaseB")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args()
@@ -34,10 +47,12 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import B, P, bench_config
+    from chip_smoke import B, P, bench_config, fused_config
     from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
     from mvsdf_tpu_torch.rendering import renderer
+    from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
     from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -47,7 +62,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = bench_config()
+    cfg = fused_config() if args.fused else bench_config()
     batch = scene_to_torch(make_scene(n_images=B, n_pix=P, feat_ch=32,
                                       img_hw=96, depth_hw=48), dev)
     state = init_train_state(cfg, seed=0, device=dev)
@@ -56,37 +71,59 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
 
     trace_s = []
-    rows = []
-    inner_trace = renderer._frozen_trace
-    inner_launch = K._launch
+    launches = {k: [] for k in DEVICE_NAMES}   # rows of each launch
+    march_rows = torch.zeros(2, dtype=torch.int64, device=dev)
+    inner = {"trace": renderer._frozen_trace, "sdf_mlp": K._launch,
+             "sdf_mlp_xyz": K._launch_xyz, "secant": S._launch,
+             "sphere_march": M._launch}
 
     def timed_trace(*a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner_trace(*a, **kw)
+        out = inner["trace"](*a, **kw)
         torch.cuda.synchronize()
         trace_s.append(time.perf_counter() - t0)
         return out
 
-    def counted_launch(packed, pe):
-        rows.append(pe.shape[0])
-        return inner_launch(packed, pe)
+    def sdf_launch(packed, pe):
+        launches["sdf_mlp"].append(pe.shape[0])
+        return inner["sdf_mlp"](packed, pe)
 
-    renderer._frozen_trace = timed_trace
-    K._launch = counted_launch
+    def xyz_launch(packed, multires, x):
+        launches["sdf_mlp_xyz"].append(x.shape[0])
+        return inner["sdf_mlp_xyz"](packed, multires, x)
+
+    def secant_launch(packed, multires, n_steps, org, *a):
+        launches["secant"].append(org.shape[0] * n_steps)
+        return inner["secant"](packed, multires, n_steps, org, *a)
+
+    def march_launch(*a):
+        launches["sphere_march"].append(0)   # rows: the kernel's counter
+        return inner["sphere_march"](*a[:-1], march_rows)
+
+    def patch(on):
+        renderer._frozen_trace = timed_trace if on else inner["trace"]
+        K._launch = sdf_launch if on else inner["sdf_mlp"]
+        K._launch_xyz = xyz_launch if on else inner["sdf_mlp_xyz"]
+        S._launch = secant_launch if on else inner["secant"]
+        M._launch = march_launch if on else inner["sphere_march"]
+
+    patch(True)
     for _ in range(3):
         step(state, batch, weights, gen)
     torch.cuda.synchronize()
     trace_s.clear()
-    rows.clear()
+    for v in launches.values():
+        v.clear()
+    march_rows.zero_()
     t0 = time.perf_counter()
     for _ in range(args.steps):
         metrics = step(state, batch, weights, gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     trace_ms = sum(trace_s) / args.steps * 1e3
-    renderer._frozen_trace = inner_trace
-    K._launch = inner_launch
+    patch(False)
+    m_eval, m_used = march_rows.tolist()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -103,18 +140,30 @@ def main():
         if dt > 0:
             kern[ev.key] = (dt / 1e3, ev.count)   # us -> ms
     busy_ms = sum(v[0] for v in kern.values())
-    sdf_ms = sum(v[0] for k, v in kern.items() if "sdf_mlp_kernel" in k)
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:15]
+    per_kernel = {}
+    for k, dname in DEVICE_NAMES.items():
+        rows = launches[k]
+        # demangled "...::name(...)" or mangled "...<len>name..."
+        ms = sum(v[0] for key, v in kern.items()
+                 if f"{dname}(" in key or f"{len(dname)}{dname}" in key)
+        per_kernel[k] = {
+            "launches_per_step": len(rows) / args.steps,
+            "rows_per_step": sum(rows) / args.steps,
+            "device_ms_per_step": ms / args.steps}
+        if rows and k != "sphere_march":
+            per_kernel[k].update(rows_max=max(rows), rows_min=min(rows))
+    per_kernel["sphere_march"].update(
+        rows_per_step=m_used / args.steps,
+        rows_evaluated_per_step=m_eval / args.steps)
     res = {
-        "device": smi, "steps": args.steps,
+        "device": smi, "config": "bench_phaseB_fused" if args.fused
+        else "bench_phaseB", "steps": args.steps,
         "step_ms": step_ms, "trace_ms_per_step": trace_ms,
-        "sdf_mlp_launches_per_step": len(rows) / args.steps,
-        "sdf_mlp_rows_per_step": sum(rows) / args.steps,
-        "sdf_mlp_rows_max": max(rows), "sdf_mlp_rows_min": min(rows),
+        "kernels": per_kernel,
         "profiled_window_ms": window_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / window_ms,
-        "sdf_mlp_device_ms_per_step": sdf_ms / args.steps,
         "top_kernels_ms_per_step": {k: [v[0] / args.steps, v[1] / args.steps]
                                     for k, v in top},
         "hit_frac": float(metrics["hit_frac"]),

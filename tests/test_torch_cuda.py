@@ -11,9 +11,14 @@ import torch
 
 from mvsdf_tpu_torch.fields import sdf as t_sdf
 from mvsdf_tpu_torch.fields.embedder import positional_encoding
+from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
 from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
+from mvsdf_tpu_torch.tracing.sphere_trace import TracerConfig
 
 SMALL = dict(feature_vector_size=16, dims=(64,) * 4, skip_in=(2,))
+WIDTHS = pytest.mark.parametrize("kw", [SMALL, {}],
+                                 ids=["small_padded", "full"])
 
 
 @pytest.fixture
@@ -45,3 +50,106 @@ def test_sdf_mlp_kernel_matches_plain_version(cuda, kw):
             ref = K.sdf_mlp_reference(packed, pe)
             assert got.shape == (n,)
             assert (got - ref).abs().max().item() <= 1e-4
+
+
+def _packed(kw, device, noise):
+    net = t_sdf.init_implicit(t_sdf.ImplicitConfig(**kw),
+                              np.random.default_rng(0)).to(device)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(noise * torch.randn_like(p))
+        return K.pack_sdf_weights(net)
+
+
+def _rays(n, device, spread):
+    """n rays from one camera towards points in a cube, with their
+    intersection with the unit sphere (as trace_rays computes it)."""
+    org = torch.tensor([[0.1, 0.2, 2.2]], device=device).expand(n, 3)
+    dirs = (torch.rand((n, 3), device=device) * 2 - 1) * spread - org
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    org = org.contiguous()
+    d_dot_o = (dirs * org).sum(-1)
+    under = d_dot_o ** 2 - ((org ** 2).sum(-1) - 1.0)
+    mi = under > 0
+    sq = torch.sqrt(torch.where(mi, under, torch.zeros_like(under)))
+    t_near = torch.where(mi, -d_dot_o - sq, torch.zeros_like(sq)).clamp_min(0)
+    t_far = torch.where(mi, -d_dot_o + sq, torch.zeros_like(sq)).clamp_min(0)
+    return org, dirs, mi, t_near, t_far
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_sdf_mlp_xyz_kernel_matches_plain_version(cuda, kw):
+    """Max |kernel - plain| <= 1e-4 (f32 sums in another order, sinf/cosf
+    against torch's), ragged row counts, one launch counted per call."""
+    packed = _packed(kw, cuda, 0.05)
+    for n in (1, 31, 4097):
+        x = torch.rand((n, 3), device=cuda) * 2 - 1
+        before = K.sdf_mlp_xyz.launches
+        got = K.sdf_mlp_xyz(packed, 6, x)
+        torch.cuda.synchronize()
+        assert K.sdf_mlp_xyz.launches == before + 1
+        ref = K.sdf_mlp_xyz_reference(packed, 6, x)
+        assert got.shape == (n,)
+        assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_secant_kernel_matches_plain_version(cuda, kw):
+    """Brackets at each ray's first sign crossing of 64 plain samples;
+    |kernel - plain| <= 1e-4 + 1e-4 |z| (the secant divides by an SDF
+    difference)."""
+    torch.manual_seed(0)
+    packed = _packed(kw, cuda, 0.0)   # the geometric init's sphere
+    org, dirs, mi, t_near, t_far = _rays(40000, cuda, 0.5)
+    ts = t_near[:, None] + torch.linspace(0, 1, 64, device=cuda) * (
+        t_far - t_near)[:, None]
+    with torch.no_grad():
+        v = K.sdf_mlp_xyz_reference(packed, 6, (
+            org[:, None] + ts[..., None] * dirs[:, None]).reshape(-1, 3)
+        ).reshape(-1, 64)
+    first = torch.argmax((v < 0).int(), 1)
+    ok = mi & (v < 0).any(1) & (first > 0)
+    rows = torch.nonzero(ok)[:, 0]
+    assert rows.numel() >= 4097
+    for n in (1, 31, 4097):
+        r = rows[:n]
+        i = first[r]
+        args = (org[r], dirs[r], ts[r, i - 1], ts[r, i], v[r, i - 1],
+                v[r, i])
+        before = S.secant.launches
+        got = S.secant(packed, 6, 8, *args)
+        torch.cuda.synchronize()
+        assert S.secant.launches == before + 1
+        ref = S.secant_reference(packed, 6, 8, *args)
+        assert got.shape == (n,)
+        assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_sphere_march_kernel_matches_plain_version(cuda, kw):
+    """Unfinished masks agree on >= 99.9% of rays, t_s and t_e within 1e-4
+    where they agree; the rows the kernel counts match the plain version's
+    to 1%."""
+    torch.manual_seed(0)
+    packed = _packed(kw, cuda, 0.02)
+    tcfg = TracerConfig()
+    for n in (1, 31, 4097):
+        rays = _rays(n, cuda, 0.9)
+        rows = torch.zeros(2, dtype=torch.int64, device=cuda)
+        rows_ref = torch.zeros_like(rows)
+        before = M.sphere_march.launches
+        got = M.sphere_march(tcfg, packed, 6, *rays, rows=rows)
+        torch.cuda.synchronize()
+        assert M.sphere_march.launches == before + 1
+        ref = M.sphere_march_reference(tcfg, packed, 6, *rays,
+                                       rows=rows_ref)
+        agree = got[0] == ref[0]
+        assert agree.float().mean().item() >= 0.999
+        for a, b in zip(got[1:], ref[1:]):
+            assert a.shape == (n,)
+            assert (a - b)[agree].abs().max().item() <= 1e-4
+        diff = (rows - rows_ref).abs()
+        assert (diff <= 0.01 * rows_ref).all(), (rows, rows_ref)

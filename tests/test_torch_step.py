@@ -4,10 +4,13 @@ width, 2 images x 256 rays, identical weights and identical random draws
 
 - render_forward + total_loss in phase A (dsurf groups, geometry detached
   for the rgb) and phase B (the bench configuration: kernel-path trace,
-  unified fallback, no miss fill, supervised compaction): every loss term
-  within 1e-4 relative and every parameter gradient within 2e-3 of its
-  tensor's largest entry (f32 sums in another order, amplified by the
-  implicit-diff division and the trace's secant).
+  unified fallback, no miss fill, supervised compaction), and phase B in
+  the fused-trace configuration (the fused march and secant kernels and the
+  in-kernel positional encoding; the JAX side runs its Pallas kernels in
+  interpret mode): every loss term within 1e-4 relative and every
+  parameter gradient within 2e-3 of its tensor's largest entry (f32 sums in
+  another order, amplified by the implicit-diff division and the trace's
+  secant).
 - Two Adam steps: the port's run in a subprocess (a torch optimizer step
   changes XLA:CPU results for the rest of its process), compared through
   npz files with the JAX package's ``make_train_step``.
@@ -50,21 +53,27 @@ BENCH_TRACER = dict(
     fallback_capacity_frac=(0.0625, 0.09375, 0.375),
     march_compact_schedule=((0, (0.375, 0.5)), (1, (0.1875, 0.25)),
                             (5, (0.0625, 0.125, 0.25))))
-# case -> (phase, tracer kw, model kw for both sides, port-only model kw)
+FUSED = dict(use_pallas_trace=True, use_pallas_march=True,
+             use_pallas_secant=True, pallas_in_kernel_pe=True)
+# case -> (phase, tracer kw, model kw for both sides, port-only model kw,
+#          JAX-only model kw)
 CASES = {
-    "phaseA": (0, {}, {}, {}),
+    "phaseA": (0, {}, {}, {}, {}),
     "phaseB_bench": (1, BENCH_TRACER, dict(supervised_compact_frac=(0.375,)),
-                     dict(use_pallas_trace=True)),
+                     dict(use_pallas_trace=True), {}),
+    "phaseB_fused": (1, BENCH_TRACER,
+                     dict(supervised_compact_frac=(0.375,), **FUSED), {},
+                     dict(pallas_interpret=True)),
 }
 
 
 def _configs(case):
-    phase, tr, model, port_only = CASES[case]
+    phase, tr, model, port_only, jax_only = CASES[case]
     common = dict(implicit_diff_min_dot=0.0, **model)
     jcfg = jc.MVSDFConfig(
         model=jc.ModelConfig(implicit=JImplicit(**ICFG),
                              render=JRender(**RCFG), tracer=JTracer(**tr),
-                             **common),
+                             **common, **jax_only),
         train=jc.TrainConfig(batch_size=B, num_pixels=P))
     tcfg = tc.MVSDFConfig(
         model=tc.ModelConfig(implicit=TImplicit(**ICFG),
