@@ -9,7 +9,11 @@ what it measured.
 Phases, in order; any failure ends the run with a non-zero exit:
   1. build        compile every kernel from the sources in the checkout
   2. kernel       each kernel against its plain version at the main path's
-                  widths (tolerances stated below), with timings and bounds
+                  widths (tolerances stated below), with timings and bounds;
+                  the two SDF-MLP kernels (bf16 tensor-core passes on split
+                  operands) are gated by the f32 plain version; their
+                  distance from the plain version of the split arithmetic
+                  is printed, and their times at 64 to 65,537 rows
   3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
                   images x P=4096 rays, full-width model from seed 0, on the
                   synthetic bench scene: the trace through sdf_mlp
@@ -33,6 +37,9 @@ import time
 B, P = 8, 4096                 # the bench shapes: 8 images x 4096 rays
 N_KERNEL = 65537               # ragged row count for the SDF-MLP checks
 TOL = 1e-4                     # max |kernel - plain| on |sdf| <~ 1, f32
+# one tile, the path's mean launch, one row more than fills the card's 132
+# SMs with 64-row tiles, the check
+SIZES = (64, 4096, 8449, N_KERNEL)
 # secant roots: |dz| <= 1e-4 + 1e-4 |z| (it divides by SDF differences)
 SECANT_ATOL = SECANT_RTOL = 1e-4
 MARCH_AGREE = 0.999            # share of rays whose unfinished masks agree
@@ -48,9 +55,11 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=10):
-    """Mean device time of fn() over iters launches after one warm-up."""
+    """Mean device time of fn() over iters launches after warm-up calls
+    (as many, at most 3)."""
     import torch
-    fn()
+    for _ in range(min(3, iters)):
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -62,10 +71,10 @@ def cuda_ms(fn, iters=10):
     return e0.elapsed_time(e1) / iters
 
 
-def bound(flops, nbytes):
-    """(least ms for the work on one H100 at its f32 peak, what bounds
-    it)."""
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BYTES_S
+def bound(flops, nbytes, peak):
+    """(least ms for the work on one H100 at the peak rate of the unit the
+    kernel's products run on, what bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -117,12 +126,17 @@ def library_chain(net, x):
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
-                 library_ms):
-    bound_ms, bound_by = bound(flops, nbytes)
+                 library_ms, peak=PEAK_F32):
+    """``bound_ms`` takes the function's operations (at the net's true
+    widths, counted once, whatever passes the kernel's design spends on
+    them) at ``peak``: the f32 rate of the CUDA cores, or the bf16 rate of
+    the tensor cores for a kernel whose products run there."""
+    bound_ms, bound_by = bound(flops, nbytes, peak)
     log(f"[kernel] {name} {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
         f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}; "
-        f"{flops / 1e9:.1f} GFLOP -> bound {bound_ms:.3f} ms at f32 peak "
-        f"({flops / PEAK_BF16 * 1e3:.3f} ms at bf16 peak), by {bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP -> bound {bound_ms:.3f} ms at the "
+        f"{'f32' if peak == PEAK_F32 else 'bf16 tensor-core'} peak, by "
+        f"{bound_by}: {ms / bound_ms:.2f} x the bound; "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
     return {"name": name, "route": "cuda",
             "source": f"mvsdf_tpu_torch/tracing/kernels/csrc/{source}",
@@ -131,13 +145,28 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def check_sdf_mlps(net, packed, x, pe, weight_bytes):
-    """sdf_mlp on pe and sdf_mlp_xyz on x, each against its plain version
-    through its wrapper (the counts are zeroed before the main path)."""
+def check_sdf_mlps(net, packed, x, pe):
+    """sdf_mlp on pe and sdf_mlp_xyz on x, each through its wrapper (the
+    counts are zeroed before the main path) against the f32 plain version
+    (the gate); the distance from the plain version of the split arithmetic
+    is printed (the tensor cores' own accumulation is not modelled there)."""
     import torch
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
     L = net.cfg.multires
     flops = K.flops_per_point(net.cfg) * N_KERNEL
+    tc_bytes = 2 * packed.w_tc.numel() + 4 * (packed.v_tc.numel() + 1)
+    tiles = -(-N_KERNEL // 64)
+    log(f"[kernel] split weights: {2 * packed.w_tc.numel() / 1e6:.2f} MB "
+        f"streamed from L2 by each 64-row block, "
+        f"{tiles * 2 * packed.w_tc.numel() / 1e9:.2f} GB a launch of "
+        f"{N_KERNEL} rows")
+    ref = K.sdf_mlp_reference(packed, pe)
+    split = K.sdf_mlp_split_reference(packed, pe)
+    one = K.mlp_chain(
+        packed, pe, lambda a, w: a.bfloat16().float() @ w.bfloat16().float())
+    log(f"[kernel] plain versions on the card, N={N_KERNEL}: max|split - "
+        f"f32| = {(split - ref).abs().max().item():.3e}, max|one bf16 pass "
+        f"- f32| = {(one - ref).abs().max().item():.3e}")
     library_ms = cuda_ms(lambda: library_chain(net, x))
     out = []
     for name, fn, ref_fn, inp, replaces in (
@@ -151,15 +180,27 @@ def check_sdf_mlps(net, packed, x, pe, weight_bytes):
         got, ref = fn(), ref_fn()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        log(f"[kernel] {name} N={N_KERNEL}: max|kernel - plain| = {err:.3e}"
-            f" (tolerance {TOL:g}), max|sdf| = {ref.abs().max().item():.3f}")
+        log(f"[kernel] {name} N={N_KERNEL}: max|kernel - f32 plain| = "
+            f"{err:.3e} (tolerance {TOL:g}), mean {(got - ref).mean():.3e}, "
+            f"mean|.| {(got - ref).abs().mean():.3e}; max|kernel - split "
+            f"plain| = {(got - split).abs().max():.3e}, mean "
+            f"{(got - split).mean():.3e}; split plain - f32 plain: mean "
+            f"{(split - ref).mean():.3e}, mean|.| "
+            f"{(split - ref).abs().mean():.3e}; max|sdf| = "
+            f"{ref.abs().max().item():.3f}")
         if not (err <= TOL and torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version:"
                                  f" {err}")
-        nbytes = 4 * (inp.numel() + N_KERNEL) + weight_bytes
+        nbytes = 4 * (inp.numel() + N_KERNEL) + tc_bytes
         out.append(kernel_entry(name, "sdf_mlp.cu", replaces, err,
                                 cuda_ms(fn), cuda_ms(ref_fn), flops, nbytes,
-                                library_ms))
+                                library_ms, peak=PEAK_BF16))
+    for n in SIZES:
+        xs, ps = x[:n].contiguous(), pe[:n].contiguous()
+        log(f"[kernel] N={n}: sdf_mlp "
+            f"{cuda_ms(lambda: K.sdf_mlp(packed, ps)):.4f} ms, sdf_mlp_xyz "
+            f"{cuda_ms(lambda: K.sdf_mlp_xyz(packed, L, xs)):.4f} ms, "
+            f"library {cuda_ms(lambda: library_chain(net, xs)):.4f} ms")
     return out
 
 
@@ -406,11 +447,13 @@ def main():
     batch = scene_to_torch(scene, dev)
     with torch.no_grad():
         packed = K.pack_sdf_weights(net.implicit)
-        weight_bytes = 4 * sum(t.numel() for t in packed
-                               if isinstance(t, torch.Tensor))
+        # the f32 fields, which the secant and the march read
+        weight_bytes = 4 * sum(
+            t.numel() for n, t in zip(packed._fields, packed)
+            if isinstance(t, torch.Tensor) and n not in ("w_tc", "v_tc"))
         x = torch.rand((N_KERNEL, 3), generator=gen, device=dev) * 2 - 1
         pe = positional_encoding(x, icfg.multires).contiguous()
-        entries = check_sdf_mlps(net.implicit, packed, x, pe, weight_bytes)
+        entries = check_sdf_mlps(net.implicit, packed, x, pe)
         rays = bench_rays(batch, tcfg)
         entries.append(check_secant(icfg, tcfg, packed, rays, weight_bytes))
         entries.append(check_march(icfg, tcfg, packed, rays, weight_bytes))

@@ -10,61 +10,79 @@
 //    sdf_kernel.py:137-157). The TPU kernel scattered frequency-scaled
 //    copies of xyz across lanes with an (8, 128) matmul; here a prologue
 //    writes each PE lane of the tile straight into shared memory.
-// Effective weights are folded once per step by pack_sdf_weights
-// (sdf_mlp.py). Activations never leave the chip; only the SDF value of
-// each point is written.
+// Effective weights are folded, split into bf16 hi/lo and tiled once per
+// step by pack_sdf_weights (sdf_mlp.py). Activations never leave the chip;
+// only the SDF value of each point is written. f32 in, f32 out.
 //
 // What bounds it: operations. The full-size net is 39 -> 512 x 8 (473
 // before the skip) -> the SDF column, ~1.84 M multiply-adds = ~3.67 MFLOP
 // per point against 12 to 156 bytes of input and 4 of output, so the
-// kernel sits far above the card's ridge point; its 7.5 MB of packed
-// weights are read from L2 (50 MB) by every block.
+// kernel sits far above the card's ridge point. The products run on the
+// tensor cores in three bf16 passes (mlp_tile_tc.cuh says why and how); the
+// next limit is L2: every 64-row block streams all ~8 MB of split weights
+// through its shared-memory ring.
 //
-// Design (first version: simple and right, f32 on the CUDA cores): one
-// block of 256 threads per tile of 32 rows (mlp_tile.cuh); the ragged last
-// tile loads zero rows and writes nothing for them.
-// Later work: bf16 wgmma with TMA-fed weight tiles and a persistent grid.
-#include "mlp_tile.cuh"
+// One block of 288 threads per tile of 64 rows; the ragged last tile loads
+// zero rows and writes nothing for them. The padded width HP (64, 128, 256
+// or 512) selects the instantiation: each consumer warpgroup's `wgmma` is
+// m64 x n(HP / 2) x k16.
+#include "mlp_tile_tc.cuh"
 
 namespace {
 
-using mlp::THREADS;
-using mlp::TM;
+using tc::CONSUMERS;
+using tc::TM;
 
-__global__ void __launch_bounds__(THREADS)
-sdf_mlp_kernel(const float* __restrict__ pe, int n, mlp::Weights w,
-               float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const mlp::Tile t = mlp::make_tile(smem, w.H, w.d_pe);
+template <int NWG>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+sdf_mlp_kernel(const float* __restrict__ pe, int n, float* __restrict__ out,
+               tc::Weights w, int stages) {
   const long long row0 = (long long)blockIdx.x * TM;
-  for (int i = threadIdx.x; i < TM * w.d_pe; i += THREADS) {
-    const int r = i / w.d_pe;
-    const int k = i - r * w.d_pe;
-    const long long row = row0 + r;
-    t.peT[k * TM + r] = row < n ? pe[row * w.d_pe + k] : 0.f;
-  }
-  __syncthreads();
-  mlp::eval_tile(w, t);
-  const long long row = row0 + threadIdx.x;
-  if (threadIdx.x < TM && row < n) out[row] = t.sdf[threadIdx.x];
+  tc::eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
+    for (int i = threadIdx.x; i < TM * t.KP; i += CONSUMERS) {
+      const int r = i / t.KP;
+      const int k = i - r * t.KP;
+      const long long row = row0 + r;
+      t.put(k, r, k < w.d_pe && row < n ? pe[row * w.d_pe + k] : 0.f);
+    }
+  });
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int NWG>
+__global__ void __launch_bounds__(tc::THREADS, 1)
 sdf_mlp_xyz_kernel(const float* __restrict__ x, int n, int multires,
-                   mlp::Weights w, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const mlp::Tile t = mlp::make_tile(smem, w.H, w.d_pe);
-  __shared__ float xyz[TM * 3];
+                   float* __restrict__ out, tc::Weights w, int stages) {
   const long long row0 = (long long)blockIdx.x * TM;
-  if (threadIdx.x < TM * 3) {
-    const long long i = row0 * 3 + threadIdx.x;
-    xyz[threadIdx.x] = i < 3LL * n ? x[i] : 0.f;
-  }
-  __syncthreads();
-  mlp::pe_tile(xyz, multires, t);
-  mlp::eval_tile(w, t);
-  const long long row = row0 + threadIdx.x;
-  if (threadIdx.x < TM && row < n) out[row] = t.sdf[threadIdx.x];
+  tc::eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
+    if (threadIdx.x < TM * 3) {
+      const long long i = row0 * 3 + threadIdx.x;
+      t.xyz[threadIdx.x] = i < 3LL * n ? x[i] : 0.f;
+    }
+    tc::consumer_sync();
+    tc::pe_from_points(t.xyz, multires, w.d_pe, t);
+  });
+}
+
+bool weights_ok(const tc::Weights& w) {
+  return w.d_pe > 0 && w.n_hid >= 0 && w.n_hid <= tc::MAX_HIDDEN &&
+         (w.n_hid == 32 || (w.skip_mask >> w.n_hid) == 0);
+}
+
+// Sets the kernel's dynamic shared memory and launches one block per tile;
+// the kernel takes args..., then the weights and the ring's depth.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int HP, const tc::Weights& w, int n, void* stream,
+           Args... args) {
+  size_t smem = 0;
+  const int stages = tc::plan_stages(HP, w.d_pe, &smem);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + TM - 1) / TM;
+  kernel<<<blocks, tc::THREADS, smem, (cudaStream_t)stream>>>(args..., w,
+                                                             stages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -72,46 +90,57 @@ sdf_mlp_xyz_kernel(const float* __restrict__ x, int n, int multires,
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). All pointers are device pointers to contiguous f32 arrays:
-// pe (n, d_pe); the weights as mlp::Weights lists them; out (n).
-int sdf_mlp_forward(const float* pe, int n, int d_pe, const float* w_in,
-                    const float* b_in, const float* w_hid,
-                    const float* b_hid, int n_hid, unsigned skip_mask,
-                    const float* w_skip_pe, const float* w_out,
-                    const float* b_out, int H, float* out, void* stream) {
+// success). All pointers are device pointers to contiguous arrays: pe
+// (n, d_pe) f32; w_stream the bf16 weight tiles and w_vec the f32 biases
+// and output column at the padded width HP, as tc::Weights describes them;
+// b_out (1) f32; out (n) f32.
+int sdf_mlp_forward(const float* pe, int n, int d_pe, int HP, int n_hid,
+                    unsigned skip_mask, const void* w_stream,
+                    const float* w_vec, const float* b_out, float* out,
+                    void* stream) {
   if (n <= 0) return 0;
-  const mlp::Weights w{w_in,  b_in, w_hid, b_hid, w_skip_pe, w_out,
-                       b_out, d_pe, H,     n_hid, skip_mask};
-  if (!mlp::weights_ok(w)) return (int)cudaErrorInvalidValue;
-  size_t smem;
-  cudaError_t err = mlp::allow_tile_smem(sdf_mlp_kernel, w, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((n + TM - 1) / TM);
-  sdf_mlp_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(pe, n, w,
-                                                                   out);
-  return (int)cudaGetLastError();
+  const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
+                      n_hid, skip_mask};
+  if (!weights_ok(w)) return (int)cudaErrorInvalidValue;
+  switch (HP) {
+    case 64:
+      return launch(sdf_mlp_kernel<32>, HP, w, n, stream, pe, n, out);
+    case 128:
+      return launch(sdf_mlp_kernel<64>, HP, w, n, stream, pe, n, out);
+    case 256:
+      return launch(sdf_mlp_kernel<128>, HP, w, n, stream, pe, n, out);
+    case 512:
+      return launch(sdf_mlp_kernel<256>, HP, w, n, stream, pe, n, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // As sdf_mlp_forward, from the points x (n, 3) and the PE's multires
 // (d_pe must be 3 (1 + 2 multires)).
-int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe,
-                        const float* w_in, const float* b_in,
-                        const float* w_hid, const float* b_hid, int n_hid,
-                        unsigned skip_mask, const float* w_skip_pe,
-                        const float* w_out, const float* b_out, int H,
-                        float* out, void* stream) {
+int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe, int HP,
+                        int n_hid, unsigned skip_mask, const void* w_stream,
+                        const float* w_vec, const float* b_out, float* out,
+                        void* stream) {
   if (n <= 0) return 0;
-  const mlp::Weights w{w_in,  b_in, w_hid, b_hid, w_skip_pe, w_out,
-                       b_out, d_pe, H,     n_hid, skip_mask};
-  if (!mlp::weights_ok(w) || multires < 0 || d_pe != 3 * (1 + 2 * multires))
+  const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
+                      n_hid, skip_mask};
+  if (!weights_ok(w) || multires < 0 || d_pe != 3 * (1 + 2 * multires))
     return (int)cudaErrorInvalidValue;
-  size_t smem;
-  cudaError_t err = mlp::allow_tile_smem(sdf_mlp_xyz_kernel, w, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((n + TM - 1) / TM);
-  sdf_mlp_xyz_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, multires, w, out);
-  return (int)cudaGetLastError();
+  switch (HP) {
+    case 64:
+      return launch(sdf_mlp_xyz_kernel<32>, HP, w, n, stream, x, n, multires,
+                    out);
+    case 128:
+      return launch(sdf_mlp_xyz_kernel<64>, HP, w, n, stream, x, n, multires,
+                    out);
+    case 256:
+      return launch(sdf_mlp_xyz_kernel<128>, HP, w, n, stream, x, n,
+                    multires, out);
+    case 512:
+      return launch(sdf_mlp_xyz_kernel<256>, HP, w, n, stream, x, n,
+                    multires, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Fused SDF-MLP for the no-grad trace: packing, plain versions, CUDA
 wrappers.
 
-Two kernels, both in ``csrc/sdf_mlp.cu`` on the MLP tile of
-``csrc/mlp_tile.cuh``:
+Two kernels, both in ``csrc/sdf_mlp.cu`` on the tensor-core MLP tile of
+``csrc/mlp_tile_tc.cuh``:
 
 - ``sdf_mlp`` takes the positional encoding pe (N, d_pe). It replaces the
   TPU kernel ``mvsdf_tpu/tracing/pallas/sdf_kernel.py`` (``pallas_sdf_apply``,
@@ -12,14 +12,19 @@ Two kernels, both in ``csrc/sdf_mlp.cu`` on the MLP tile of
   (``_make_pe_kernel``, lines 137-157).
 
 The kernel sources say what bounds them (operations: ~3.67 MFLOP per point
-for the full-size net) and what their design does about it.
+for the full-size net) and what their design does about it: every product
+runs on the tensor cores as three bf16 products of operands split into
+hi = bf16(v) and lo = bf16(v - hi), summed in f32.
 
 - ``pack_sdf_weights`` folds weight norm into effective weights once per
-  step and zero-pads every hidden layer to the width H. The fused secant
-  and march kernels take the same packing.
-- ``sdf_mlp_reference`` and ``sdf_mlp_xyz_reference`` are the plain
-  PyTorch versions of the kernels' arithmetic. The tests use them, and the
-  chip smoke run holds the kernels against them.
+  step and zero-pads every hidden layer to the width H (the f32 fields;
+  the fused secant and march kernels take them), then splits and tiles
+  them for the tensor-core tile (``w_tc``, ``v_tc``).
+- ``sdf_mlp_reference`` and ``sdf_mlp_xyz_reference`` are the plain f32
+  PyTorch versions of the kernels' function: the yardstick the kernels are
+  held to. ``sdf_mlp_split_reference`` is the plain version of the kernels'
+  arithmetic, split products and all. The tests use them, and the chip
+  smoke run holds the kernels against them.
 - ``sdf_mlp`` and ``sdf_mlp_xyz`` run the plain version for a tensor on the
   CPU, and for a CUDA tensor launch the kernel or raise. Their
   ``.launches`` count kernel launches.
@@ -38,8 +43,10 @@ from ...fields.embedder import embed_dim, positional_encoding
 from ...fields.sdf import ImplicitConfig, ImplicitNetwork, softplus100
 from . import build
 
-MAX_H = 512      # two columns per thread, 256 threads
+MAX_H = 512      # two warpgroups, each a 256-column wgmma
 MAX_HIDDEN = 32  # skip layers are a 32-bit mask
+TC_WIDTHS = (64, 128, 256, 512)  # padded widths the tile is built for
+TC_K = 16        # wgmma's K: a k-step's rows of a weight matrix
 
 
 class PackedSDF(NamedTuple):
@@ -47,7 +54,11 @@ class PackedSDF(NamedTuple):
     contiguous, one device): w_in (d_pe, H); b_in (H,); w_hid (n_hid, H, H);
     b_hid (n_hid, H); w_skip_pe (n_skip, d_pe, H) in hidden-layer order;
     w_out (H,) the SDF column; b_out (1,). ``skip`` marks each hidden
-    layer that adds ``pe @ w_skip_pe`` and scales by 1/sqrt(2)."""
+    layer that adds ``pe @ w_skip_pe`` and scales by 1/sqrt(2).
+
+    For the tensor-core tile, at the padded width ``tc_width(H)``: ``w_tc``
+    (bf16) is the stream of weight tiles ``tile_split_weights`` lays out;
+    ``v_tc`` (n_hid + 2, HP) f32 holds b_in, b_hid and w_out, zero-padded."""
     w_in: torch.Tensor
     b_in: torch.Tensor
     w_hid: torch.Tensor
@@ -56,6 +67,8 @@ class PackedSDF(NamedTuple):
     w_out: torch.Tensor
     b_out: torch.Tensor
     skip: Tuple[bool, ...]
+    w_tc: torch.Tensor
+    v_tc: torch.Tensor
 
     @property
     def d_pe(self) -> int:
@@ -70,11 +83,69 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
+def tc_width(H: int) -> int:
+    """The padded width the tensor-core tile runs a net of width H at."""
+    for hp in TC_WIDTHS:
+        if H <= hp:
+            return hp
+    raise ValueError(f"the SDF kernel takes hidden widths <= {MAX_H}")
+
+
+def split_bf16(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v (f32) -> (hi, lo) in bf16 with hi = bf16(v), lo = bf16(v - hi),
+    both rounded to nearest even: hi + lo keeps 16 bits of v's mantissa
+    (|v - hi - lo| <= 2^-17 |v|)."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def layer_matrices(w_in, w_hid, w_skip_pe, skip) -> list:
+    """The f32 matrices of the weight stream in the order the tile consumes
+    them, each (K, HP) with K a multiple of 16: the input layer's (KP, HP);
+    then each hidden layer's (HP, HP), followed by its (KP, HP) from the PE
+    if it is a skip layer. Rows above d_pe or H and columns above H are
+    zero. The arguments are PackedSDF's fields of those names."""
+    d_pe, H = w_in.shape
+    HP, KP = tc_width(H), _round_up(d_pe, TC_K)
+
+    def pad(w, rows):
+        out = w.new_zeros(rows, HP)
+        out[:w.shape[0], :w.shape[1]] = w
+        return out
+
+    mats = [pad(w_in, KP)]
+    k = 0
+    for j, is_skip in enumerate(skip):
+        mats.append(pad(w_hid[j], HP))
+        if is_skip:
+            mats.append(pad(w_skip_pe[k], KP))
+            k += 1
+    return mats
+
+
+def tile_split_weights(mats) -> torch.Tensor:
+    """The bf16 weight stream of the tensor-core tile: for every k-step (16
+    rows) of every matrix in ``mats``, the hi tile then the lo tile of
+    ``split_bf16``, each (16, HP) tile stored as wgmma's K-major core
+    matrices: W[k][n] at element ((k // 8) * (HP // 8) + n // 8) * 64 +
+    (n % 8) * 8 + k % 8."""
+    tiles = []
+    for w in mats:
+        K, HP = w.shape
+        both = torch.stack(split_bf16(w))             # (2, K, HP)
+        t = both.reshape(2, K // TC_K, 2, 8, HP // 8, 8)
+        # (hi/lo, k-step, kg, k8, ng, n8) -> (k-step, hi/lo, kg, ng, n8, k8)
+        tiles.append(t.permute(1, 0, 2, 4, 5, 3).reshape(-1))
+    return torch.cat(tiles).contiguous()
+
+
 @torch.no_grad()
 def pack_sdf_weights(net: ImplicitNetwork) -> PackedSDF:
     """Fold weight norm and zero-pad every hidden width to H (a multiple
     of 32). The zero bias and the zero rows of the next matrix keep the
-    padded lanes (softplus(0) = log(2)/100) out of the result."""
+    padded lanes (softplus(0) = log(2)/100) out of the result. The same
+    matrices, split into bf16 hi/lo and tiled at the width tc_width(H), are
+    the tensor-core tile's ``w_tc``."""
     cfg = net.cfg
     dims = cfg.layer_dims
     n_layers = len(dims)
@@ -123,22 +194,35 @@ def pack_sdf_weights(net: ImplicitNetwork) -> PackedSDF:
     w_out = torch.zeros(H, **f32)
     w_out[:Wl.shape[0]] = Wl[:, 0]
     b_out = layers[n_layers - 2].b[:1].detach().clone().float()
-    return PackedSDF(w_in, b_in, w_hid, b_hid, w_skip_pe.contiguous(),
-                     w_out, b_out.contiguous(), tuple(skip))
+    w_skip_pe = w_skip_pe.contiguous()
+    v_tc = torch.zeros(n_hid + 2, tc_width(H), **f32)
+    v_tc[0, :H] = b_in
+    v_tc[1:n_hid + 1, :H] = b_hid
+    v_tc[n_hid + 1, :H] = w_out
+    w_tc = tile_split_weights(layer_matrices(w_in, w_hid, w_skip_pe, skip))
+    return PackedSDF(w_in, b_in, w_hid, b_hid, w_skip_pe, w_out,
+                     b_out.contiguous(), tuple(skip), w_tc, v_tc)
+
+
+def mlp_chain(packed: PackedSDF, pe: torch.Tensor, matmul) -> torch.Tensor:
+    """pe (N, d_pe) f32 -> sdf (N,) with every layer's product taken by
+    ``matmul(a, w)``; bias, the skip's 1/sqrt(2), softplus100 and the SDF
+    column's dot product in f32."""
+    inv_sqrt2 = 1.0 / np.sqrt(2.0)
+    h = softplus100(matmul(pe, packed.w_in) + packed.b_in)
+    k = 0
+    for j, is_skip in enumerate(packed.skip):
+        z = matmul(h, packed.w_hid[j])
+        if is_skip:
+            z = (z + matmul(pe, packed.w_skip_pe[k])) * inv_sqrt2
+            k += 1
+        h = softplus100(z + packed.b_hid[j])
+    return h @ packed.w_out + packed.b_out
 
 
 def sdf_mlp_reference(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: pe (N, d_pe) f32 -> sdf (N,)."""
-    inv_sqrt2 = 1.0 / np.sqrt(2.0)
-    h = softplus100(pe @ packed.w_in + packed.b_in)
-    k = 0
-    for j, is_skip in enumerate(packed.skip):
-        z = h @ packed.w_hid[j]
-        if is_skip:
-            z = (z + pe @ packed.w_skip_pe[k]) * inv_sqrt2
-            k += 1
-        h = softplus100(z + packed.b_hid[j])
-    return h @ packed.w_out + packed.b_out
+    return mlp_chain(packed, pe, torch.matmul)
 
 
 def sdf_mlp_xyz_reference(packed: PackedSDF, multires: int,
@@ -148,12 +232,33 @@ def sdf_mlp_xyz_reference(packed: PackedSDF, multires: int,
     return sdf_mlp_reference(packed, positional_encoding(x, multires))
 
 
+def split_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w as the tensor-core tile computes it: both operands split by
+    ``split_bf16``, a_hi w_hi + a_lo w_hi + a_hi w_lo with every product
+    exact and the sums in f32."""
+    a_hi, a_lo = (t.float() for t in split_bf16(a))
+    w_hi, w_lo = (t.float() for t in split_bf16(w))
+    return a_hi @ w_hi + a_lo @ w_hi + a_hi @ w_lo
+
+
+def sdf_mlp_split_reference(packed: PackedSDF,
+                            pe: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' arithmetic, step by step: pe
+    (N, d_pe) f32 -> sdf (N,), every product by ``split_matmul``. The
+    kernel differs from it in how the f32 sums are taken: their order, and
+    the tensor cores' own accumulation."""
+    return mlp_chain(packed, pe, split_matmul)
+
+
 # --- launching ------------------------------------------------------------
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
-# the packed weights as every C entry point takes them
+# the packed f32 weights as the C entry points of the march and the secant
+# take them
 WEIGHT_ARGTYPES = (INT, PTR, PTR, PTR, PTR, INT, ctypes.c_uint, PTR, PTR, PTR,
                    INT)
+# the packed split weights as the entry points of sdf_mlp.cu take them
+TC_WEIGHT_ARGTYPES = (INT, INT, INT, ctypes.c_uint, PTR, PTR, PTR)
 
 
 def on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -180,17 +285,38 @@ def check_multires(packed: PackedSDF, multires: int):
                          f" lanes, the weights take {packed.d_pe}")
 
 
+def _skip_mask(packed: PackedSDF) -> int:
+    return sum(1 << j for j, s in enumerate(packed.skip) if s)
+
+
 def weight_args(packed: PackedSDF, device: torch.device) -> list:
-    """The packed weights as the C entry points take them (WEIGHT_ARGTYPES),
-    after checking they are contiguous f32 on ``device``."""
+    """The packed f32 weights as the C entry points take them
+    (WEIGHT_ARGTYPES), after checking they are contiguous f32 on
+    ``device``."""
     check_tensors(device, **{f"packed.{n}": t for n, t in
                              zip(PackedSDF._fields, packed)
-                             if isinstance(t, torch.Tensor)})
-    mask = sum(1 << j for j, s in enumerate(packed.skip) if s)
+                             if isinstance(t, torch.Tensor) and n != "w_tc"})
     return [packed.d_pe, packed.w_in.data_ptr(), packed.b_in.data_ptr(),
             packed.w_hid.data_ptr(), packed.b_hid.data_ptr(),
-            len(packed.skip), mask, packed.w_skip_pe.data_ptr(),
+            len(packed.skip), _skip_mask(packed), packed.w_skip_pe.data_ptr(),
             packed.w_out.data_ptr(), packed.b_out.data_ptr(), packed.H]
+
+
+def tc_weight_args(packed: PackedSDF, device: torch.device) -> list:
+    """The packed split weights as sdf_mlp.cu takes them
+    (TC_WEIGHT_ARGTYPES), after checking their types, sizes and device."""
+    HP, KP = tc_width(packed.H), _round_up(packed.d_pe, TC_K)
+    n_hid = len(packed.skip)
+    check_tensors(device, torch.bfloat16, **{"packed.w_tc": packed.w_tc})
+    check_tensors(device, **{"packed.v_tc": packed.v_tc,
+                             "packed.b_out": packed.b_out})
+    rows = KP + n_hid * HP + sum(packed.skip) * KP
+    if packed.w_tc.numel() != 2 * rows * HP or \
+            packed.v_tc.shape != (n_hid + 2, HP):
+        raise ValueError("packed.w_tc / v_tc do not match the net's shape")
+    return [packed.d_pe, HP, n_hid, _skip_mask(packed),
+            packed.w_tc.data_ptr(), packed.v_tc.data_ptr(),
+            packed.b_out.data_ptr()]
 
 
 def stream(device: torch.device) -> int:
@@ -206,12 +332,12 @@ def _launch(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     n, d_pe = pe.shape
     if d_pe != packed.d_pe:
         raise ValueError(f"pe has {d_pe} lanes, the weights {packed.d_pe}")
-    wargs = weight_args(packed, pe.device)
+    wargs = tc_weight_args(packed, pe.device)
     out = torch.empty(n, dtype=torch.float32, device=pe.device)
     if n == 0:
         return out
     fn = build.function("sdf_mlp_forward",
-                        (PTR, INT, *WEIGHT_ARGTYPES, PTR, PTR))
+                        (PTR, INT, *TC_WEIGHT_ARGTYPES, PTR, PTR))
     raise_on_error(fn(pe.data_ptr(), n, *wargs, out.data_ptr(),
                       stream(pe.device)), "sdf_mlp")
     return out
@@ -219,13 +345,13 @@ def _launch(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
 
 def _launch_xyz(packed: PackedSDF, multires: int,
                 x: torch.Tensor) -> torch.Tensor:
-    wargs = weight_args(packed, x.device)
+    wargs = tc_weight_args(packed, x.device)
     n = x.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
     fn = build.function("sdf_mlp_xyz_forward",
-                        (PTR, INT, INT, *WEIGHT_ARGTYPES, PTR, PTR))
+                        (PTR, INT, INT, *TC_WEIGHT_ARGTYPES, PTR, PTR))
     raise_on_error(fn(x.data_ptr(), n, multires, *wargs, out.data_ptr(),
                       stream(x.device)), "sdf_mlp_xyz")
     return out

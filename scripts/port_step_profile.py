@@ -10,8 +10,10 @@ SDF-MLP kernels). Reports:
   - for each trace kernel, launches and MLP rows per step (for the march,
     the rows its blocks evaluated and the rows the march used, from the
     kernel's own counter);
-  - a torch.profiler window: device time by kernel, each trace kernel's
-    device time, and the device's busy share of the window.
+  - a torch.profiler window over the following steps: device time by
+    kernel, each trace kernel's device time with the launches and rows of
+    that same window (the trace's work follows the training state, so the
+    two windows differ), and the device's busy share of the window.
 
     python3 scripts/port_step_profile.py [--fused] [--steps 5] [--out f]
 
@@ -101,8 +103,9 @@ def main():
         launches["sphere_march"].append(0)   # rows: the kernel's counter
         return inner["sphere_march"](*a[:-1], march_rows)
 
-    def patch(on):
-        renderer._frozen_trace = timed_trace if on else inner["trace"]
+    def patch(on, time_trace=True):
+        renderer._frozen_trace = timed_trace if on and time_trace \
+            else inner["trace"]
         K._launch = sdf_launch if on else inner["sdf_mlp"]
         K._launch_xyz = xyz_launch if on else inner["sdf_mlp_xyz"]
         S._launch = secant_launch if on else inner["secant"]
@@ -122,8 +125,14 @@ def main():
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     trace_ms = sum(trace_s) / args.steps * 1e3
-    patch(False)
     m_eval, m_used = march_rows.tolist()
+    timed = {k: list(v) for k, v in launches.items()}
+    # the profiled window counts its own launches (no trace timing: its
+    # synchronizes would change the window's busy share)
+    patch(True, time_trace=False)
+    for v in launches.values():
+        v.clear()
+    march_rows.zero_()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -132,6 +141,8 @@ def main():
             step(state, batch, weights, gen)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    patch(False)
+    p_eval, p_used = march_rows.tolist()
     kern = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -143,19 +154,25 @@ def main():
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:15]
     per_kernel = {}
     for k, dname in DEVICE_NAMES.items():
-        rows = launches[k]
-        # demangled "...::name(...)" or mangled "...<len>name..."
+        rows, p_rows = timed[k], launches[k]
+        # demangled "...::name(...)" or "...::name<...>(...)", or mangled
+        # "...<len>name..."
         ms = sum(v[0] for key, v in kern.items()
-                 if f"{dname}(" in key or f"{len(dname)}{dname}" in key)
+                 if f"{dname}(" in key or f"{dname}<" in key
+                 or f"{len(dname)}{dname}" in key)
         per_kernel[k] = {
             "launches_per_step": len(rows) / args.steps,
             "rows_per_step": sum(rows) / args.steps,
+            "profiled_launches_per_step": len(p_rows) / args.steps,
+            "profiled_rows_per_step": sum(p_rows) / args.steps,
             "device_ms_per_step": ms / args.steps}
         if rows and k != "sphere_march":
             per_kernel[k].update(rows_max=max(rows), rows_min=min(rows))
     per_kernel["sphere_march"].update(
         rows_per_step=m_used / args.steps,
-        rows_evaluated_per_step=m_eval / args.steps)
+        rows_evaluated_per_step=m_eval / args.steps,
+        profiled_rows_per_step=p_used / args.steps,
+        profiled_rows_evaluated_per_step=p_eval / args.steps)
     res = {
         "device": smi, "config": "bench_phaseB_fused" if args.fused
         else "bench_phaseB", "steps": args.steps,

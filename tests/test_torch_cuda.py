@@ -19,6 +19,12 @@ from mvsdf_tpu_torch.tracing.sphere_trace import TracerConfig
 SMALL = dict(feature_vector_size=16, dims=(64,) * 4, skip_in=(2,))
 WIDTHS = pytest.mark.parametrize("kw", [SMALL, {}],
                                  ids=["small_padded", "full"])
+# one net for each width the tensor-core tile is instantiated at
+TC_WIDTHS = pytest.mark.parametrize(
+    "kw", [SMALL, dict(feature_vector_size=16, dims=(96,) * 3, skip_in=()),
+           dict(feature_vector_size=16, dims=(200,) * 3, skip_in=(1,)), {}],
+    ids=["small_padded", "h96_at_128", "h200_at_256", "full"])
+ROWS = (1, 63, 64, 65, 4097, 8449)   # across the 64-row tile's edges
 
 
 @pytest.fixture
@@ -30,17 +36,18 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [SMALL, {}], ids=["small_padded", "full"])
+@TC_WIDTHS
 def test_sdf_mlp_kernel_matches_plain_version(cuda, kw):
-    """Max |kernel - plain| <= 1e-4 on SDF values of order 1 (f32 sums in
-    another order), ragged row counts, one launch counted per call."""
+    """Max |kernel - f32 plain| <= 1e-4 on SDF values of order 1 (three
+    bf16 tensor-core passes on split operands: ~2e-5); row counts across
+    tile edges, one launch counted per call."""
     net = t_sdf.init_implicit(t_sdf.ImplicitConfig(**kw),
                               np.random.default_rng(0)).to(cuda)
     with torch.no_grad():
         for p in net.parameters():
             p.add_(0.05 * torch.randn_like(p))
         packed = K.pack_sdf_weights(net)
-        for n in (1, 31, 4097):
+        for n in ROWS:
             x = torch.rand((n, 3), device=cuda) * 2 - 1
             pe = positional_encoding(x, 6)
             before = K.sdf_mlp.launches
@@ -49,6 +56,7 @@ def test_sdf_mlp_kernel_matches_plain_version(cuda, kw):
             assert K.sdf_mlp.launches == before + 1
             ref = K.sdf_mlp_reference(packed, pe)
             assert got.shape == (n,)
+            assert torch.isfinite(got).all()
             assert (got - ref).abs().max().item() <= 1e-4
 
 
@@ -78,12 +86,13 @@ def _rays(n, device, spread):
 
 
 @pytest.mark.cuda
-@WIDTHS
+@TC_WIDTHS
 def test_sdf_mlp_xyz_kernel_matches_plain_version(cuda, kw):
-    """Max |kernel - plain| <= 1e-4 (f32 sums in another order, sinf/cosf
-    against torch's), ragged row counts, one launch counted per call."""
+    """Max |kernel - f32 plain| <= 1e-4 (three bf16 tensor-core passes on
+    split operands, sinf/cosf against torch's), row counts across tile
+    edges, one launch counted per call."""
     packed = _packed(kw, cuda, 0.05)
-    for n in (1, 31, 4097):
+    for n in ROWS:
         x = torch.rand((n, 3), device=cuda) * 2 - 1
         before = K.sdf_mlp_xyz.launches
         got = K.sdf_mlp_xyz(packed, 6, x)
@@ -91,6 +100,7 @@ def test_sdf_mlp_xyz_kernel_matches_plain_version(cuda, kw):
         assert K.sdf_mlp_xyz.launches == before + 1
         ref = K.sdf_mlp_xyz_reference(packed, 6, x)
         assert got.shape == (n,)
+        assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() <= 1e-4
 
 

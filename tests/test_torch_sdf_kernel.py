@@ -4,7 +4,9 @@ package's Pallas kernel and field.
 On the CPU the wrapper runs the kernel's plain version, so these tests hold
 ``pack_sdf_weights`` + ``sdf_mlp_reference`` against
 ``pallas_sdf_apply(interpret=True)`` and ``sdf_apply`` (2e-5 absolute on
-SDF values of order 1, as the JAX package's own kernel test). The CUDA
+SDF values of order 1, as the JAX package's own kernel test). The plain
+version of the arithmetic the CUDA kernel runs (``sdf_mlp_split_reference``:
+bf16 hi/lo split products) is held to the same Pallas kernel. The CUDA
 kernel itself runs only on a GPU: tests/test_torch_cuda.py.
 """
 import jax
@@ -64,6 +66,28 @@ def test_reference_matches_pallas_and_field(kw):
     assert got.shape == (n,)
     np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=1e-5)
     np.testing.assert_allclose(got, field, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [SMALL, NO_SKIP, {}],
+                         ids=["small_skip_padded", "no_skip", "full_size"])
+def test_split_reference_matches_pallas(kw):
+    """The split arithmetic of the tensor-core tile against the JAX
+    package's kernel in interpret mode, on the same numpy inputs. The split
+    keeps 16 mantissa bits of each operand: up to 1.6e-5 from the f32 plain
+    version through the 9 layers (tests/test_torch_sdf_split.py), which
+    itself is held to the Pallas kernel at 2e-5; so 4e-5 here (measured
+    0.7e-5 to 1.2e-5)."""
+    n = 777 if kw else 300
+    jcfg, params, net = _pair(kw)
+    x = _x(n)
+    packed = K.pack_sdf_weights(net)
+    pe = positional_encoding(torch.from_numpy(x), net.cfg.multires)
+    got = K.sdf_mlp_split_reference(packed, pe).numpy()
+    pallas = np.asarray(pallas_sdf_apply(jcfg, j_pack(jcfg, params),
+                                         jnp.asarray(x), block=256,
+                                         interpret=True))
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got, pallas, atol=4e-5, rtol=1e-5)
 
 
 def test_packed_weights_match_jax_packing():
