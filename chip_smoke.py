@@ -13,7 +13,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   the two SDF-MLP kernels (bf16 tensor-core passes on split
                   operands) are gated by the f32 plain version; their
                   distance from the plain version of the split arithmetic
-                  is printed, and their times at 64 to 65,537 rows
+                  is printed, and their times at 64 to 65,537 rows; the
+                  secant and the march, which loop over the same tile, are
+                  gated by their f32 plain versions and, more tightly, by
+                  the trace's host-driven loops through sdf_mlp_xyz (the
+                  same arithmetic on the same points); the march also by a
+                  shuffled copy of its rays (equal bits) and its rows
+                  evaluated / used beside the scheduler model's
   3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
                   images x P=4096 rays, full-width model from seed 0, on the
                   synthetic bench scene: the trace through sdf_mlp
@@ -21,7 +27,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   through the kernel against one through the plain field
   5. train_fused  phases 3 in bench_phaseB_fused: the fused march, secant
                   and in-kernel-PE SDF-MLP kernels, and no sdf_mlp
-  6. eval_fused   phase 4 in bench_phaseB_fused
+  6. eval_fused   phase 4 in bench_phaseB_fused; then the march's rows
+                  evaluated / used once more, on the field those training
+                  steps left
 Every kernel count is set to 0 just before each of phases 3-6 and read just
 after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
@@ -40,12 +48,19 @@ TOL = 1e-4                     # max |kernel - plain| on |sdf| <~ 1, f32
 # one tile, the path's mean launch, one row more than fills the card's 132
 # SMs with 64-row tiles, the check
 SIZES = (64, 4096, 8449, N_KERNEL)
-# secant roots: |dz| <= 1e-4 + 1e-4 |z| (it divides by SDF differences)
+# secant roots against the f32 plain version: |dz| <= 1e-4 + 1e-4 |z| (it
+# divides by SDF differences) + 2 e / |slope|, where e is the distance of
+# the tile's SDF from f32 measured in this run and slope the f32 SDF's
+# derivative along the ray at the root, by central differences of SLOPE_H:
+# an SDF that is off by e has its root e / |slope| away
 SECANT_ATOL = SECANT_RTOL = 1e-4
+SLOPE_H = 1e-3
 MARCH_AGREE = 0.999            # share of rays whose unfinished masks agree
 MARCH_TOL = 1e-4               # |dt| where they agree
+# against the host-driven loops through sdf_mlp_xyz, the same tile
+# arithmetic on the same points: every mask equal, and
+HOST_TOL = 1e-6                # |dt|; |dz| <= HOST_TOL (1 + |z|)
 WARMUP, TIMED = 3, 5
-PEAK_F32 = 67e12               # H100 SXM, f32 outside the tensor cores
 PEAK_BF16 = 989e12             # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 
@@ -126,17 +141,17 @@ def library_chain(net, x):
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
-                 library_ms, peak=PEAK_F32):
+                 library_ms):
     """``bound_ms`` takes the function's operations (at the net's true
     widths, counted once, whatever passes the kernel's design spends on
-    them) at ``peak``: the f32 rate of the CUDA cores, or the bf16 rate of
-    the tensor cores for a kernel whose products run there."""
-    bound_ms, bound_by = bound(flops, nbytes, peak)
+    them) at the bf16 rate of the tensor cores, where every kernel's
+    products run."""
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
     log(f"[kernel] {name} {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
         f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}; "
         f"{flops / 1e9:.1f} GFLOP -> bound {bound_ms:.3f} ms at the "
-        f"{'f32' if peak == PEAK_F32 else 'bf16 tensor-core'} peak, by "
-        f"{bound_by}: {ms / bound_ms:.2f} x the bound; "
+        f"bf16 tensor-core peak, by {bound_by}: {ms / bound_ms:.2f} x the "
+        f"bound; "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
     return {"name": name, "route": "cuda",
             "source": f"mvsdf_tpu_torch/tracing/kernels/csrc/{source}",
@@ -145,16 +160,16 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def check_sdf_mlps(net, packed, x, pe):
+def check_sdf_mlps(net, packed, x, pe, weight_bytes):
     """sdf_mlp on pe and sdf_mlp_xyz on x, each through its wrapper (the
     counts are zeroed before the main path) against the f32 plain version
     (the gate); the distance from the plain version of the split arithmetic
-    is printed (the tensor cores' own accumulation is not modelled there)."""
+    is printed (the tensor cores' own accumulation is not modelled there).
+    Returns the kernels' entries and the time of a one-tile launch."""
     import torch
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
     L = net.cfg.multires
     flops = K.flops_per_point(net.cfg) * N_KERNEL
-    tc_bytes = 2 * packed.w_tc.numel() + 4 * (packed.v_tc.numel() + 1)
     tiles = -(-N_KERNEL // 64)
     log(f"[kernel] split weights: {2 * packed.w_tc.numel() / 1e6:.2f} MB "
         f"streamed from L2 by each 64-row block, "
@@ -191,17 +206,20 @@ def check_sdf_mlps(net, packed, x, pe):
         if not (err <= TOL and torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version:"
                                  f" {err}")
-        nbytes = 4 * (inp.numel() + N_KERNEL) + tc_bytes
+        nbytes = 4 * (inp.numel() + N_KERNEL) + weight_bytes
         out.append(kernel_entry(name, "sdf_mlp.cu", replaces, err,
                                 cuda_ms(fn), cuda_ms(ref_fn), flops, nbytes,
-                                library_ms, peak=PEAK_BF16))
+                                library_ms))
     for n in SIZES:
         xs, ps = x[:n].contiguous(), pe[:n].contiguous()
+        xyz_ms = cuda_ms(lambda: K.sdf_mlp_xyz(packed, L, xs))
+        if n == SIZES[0]:
+            tile_ms = xyz_ms
         log(f"[kernel] N={n}: sdf_mlp "
             f"{cuda_ms(lambda: K.sdf_mlp(packed, ps)):.4f} ms, sdf_mlp_xyz "
-            f"{cuda_ms(lambda: K.sdf_mlp_xyz(packed, L, xs)):.4f} ms, "
+            f"{xyz_ms:.4f} ms, "
             f"library {cuda_ms(lambda: library_chain(net, xs)):.4f} ms")
-    return out
+    return out, tile_ms
 
 
 def bench_rays(batch, tcfg):
@@ -218,33 +236,86 @@ def bench_rays(batch, tcfg):
     return org, dirs, mi, t_near, t_far
 
 
-def check_march(icfg, tcfg, packed, rays, weight_bytes):
+def march_rows(tag, tcfg, packed, L, rays, tile_ms):
+    """Runs the march on ``rays`` and prints its rows evaluated / used
+    beside the scheduler model's for the same rays, with the model's split
+    of the rows whose value no ray kept. Returns (the march's result, [rows
+    evaluated, rows used], its time in ms)."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
+    dev = rays[0].device
+    rows, rows_model = (torch.zeros(2, dtype=torch.int64, device=dev)
+                        for _ in range(2))
+    got = M.sphere_march(tcfg, packed, L, *rays, rows=rows)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(sms, -(-rays[2].numel() // 32))
+    detail = {}
+    M.sphere_march_slots_reference(tcfg, packed, L, *rays, rows=rows_model,
+                                   blocks=blocks, detail=detail)
+    (ev, used), (m_ev, m_used) = rows.tolist(), rows_model.tolist()
+    ms = cuda_ms(lambda: M.sphere_march(tcfg, packed, L, *rays))
+    log(f"[march rows] {tag}: kernel {ms:.3f} ms, rows evaluated / used "
+        f"{ev} / {used} = {ev / used:.3f} ({ev / 64 / blocks:.1f} tile "
+        f"evaluations a block x {tile_ms:.4f} ms a one-tile launch = "
+        f"{ev / 64 / blocks * tile_ms:.3f} ms); scheduler model on {blocks} "
+        f"blocks {m_ev} / {m_used} = {m_ev / m_used:.3f}, its longest block "
+        f"{detail['rounds']} evaluations, the queue empty after "
+        f"{detail['drained']}, the longest ray {detail['longest_ray']} "
+        f"evaluations; of its {m_ev - m_used} rows no "
+        f"ray kept, {m_ev - detail['live_rows']} were free slots and "
+        f"{detail['live_rows'] - m_used} rows of live rays that waited for "
+        f"no value")
+    return got, [ev, used], ms
+
+
+def check_march(icfg, tcfg, packed, rays, weight_bytes, tile_ms):
     import torch
     from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.sphere_trace import _sphere_trace
     L = icfg.multires
     dev = rays[0].device
-    rows = torch.zeros(2, dtype=torch.int64, device=dev)
-    rows_ref = torch.zeros_like(rows)
-    got = M.sphere_march(tcfg, packed, L, *rays, rows=rows)
+    rows_ref = torch.zeros(2, dtype=torch.int64, device=dev)
     ref = M.sphere_march_reference(tcfg, packed, L, *rays, rows=rows_ref)
+    got, rows, ms = march_rows("seed-0 weights", tcfg, packed, L, rays,
+                               tile_ms)
     torch.cuda.synchronize()
     agree = got[0] == ref[0]
     share = agree.float().mean().item()
     err = max((a - b)[agree].abs().max().item()
               for a, b in zip(got[1:], ref[1:]))
     finite = all(torch.isfinite(a).all() for a in got[1:])
-    rows, rows_ref = rows.tolist(), rows_ref.tolist()
+    rows_ref = rows_ref.tolist()
     R = rays[2].numel()
     log(f"[kernel] sphere_march R={R} ({int(rays[2].sum())} meet the "
-        f"sphere): unfinished masks agree on {share:.5f} (>= {MARCH_AGREE})"
-        f", max|dt| where they agree = {err:.3e} (tolerance {MARCH_TOL:g})"
-        f"; unfinished {int(got[0].sum())}, hits "
-        f"{int((got[1] < got[2]).sum())}; rows evaluated / used: kernel "
-        f"{rows[0]} / {rows[1]}, plain {rows_ref[0]} / {rows_ref[1]}")
+        f"sphere) against the f32 plain version: unfinished masks agree on "
+        f"{share:.5f} (>= {MARCH_AGREE}), {int((~agree).sum())} rays differ"
+        f"; max|dt| where they agree = {err:.3e} (tolerance {MARCH_TOL:g})"
+        f", mean signed dt_s {(got[1] - ref[1])[agree].mean():.3e}, dt_e "
+        f"{(got[2] - ref[2])[agree].mean():.3e}; unfinished "
+        f"{int(got[0].sum())}, hits {int((got[1] < got[2]).sum())}")
+    log(f"[kernel] sphere_march rows evaluated / used of the lockstep "
+        f"plain version: {rows_ref[0]} / {rows_ref[1]}")
+    # the same arithmetic on the same points: the trace's host-driven march
+    # through the sdf_mlp_xyz kernel
+    host = _sphere_trace(tcfg, lambda x: K.sdf_mlp_xyz(packed, L, x), *rays)
+    h_equal = int((got[0] != host[0]).sum())
+    h_err = max((a - b).abs().max().item() for a, b in zip(got[1:], host[1:]))
+    log(f"[kernel] sphere_march against the host-driven march through "
+        f"sdf_mlp_xyz: {h_equal} masks differ (0), max|dt| = {h_err:.3e} "
+        f"(tolerance {HOST_TOL:g})")
     if share < MARCH_AGREE or err > MARCH_TOL or not finite:
         raise AssertionError("sphere_march disagrees with its plain version")
-    ms = cuda_ms(lambda: M.sphere_march(tcfg, packed, L, *rays))
+    if h_equal or h_err > HOST_TOL:
+        raise AssertionError("sphere_march disagrees with the host-driven "
+                             "march on the same arithmetic")
+    # scheduling must not reach values
+    perm = torch.randperm(R, device=dev)
+    shuffled = M.sphere_march(tcfg, packed, L,
+                              *(a[perm].contiguous() for a in rays))
+    if not all(torch.equal(a[perm], b) for a, b in zip(got, shuffled)):
+        raise AssertionError("sphere_march changes with the order of rays")
+    log("[kernel] sphere_march on a shuffled copy of the rays: equal bits")
     plain_ms = cuda_ms(lambda: M.sphere_march_reference(tcfg, packed, L,
                                                         *rays), iters=2)
     flops = K.flops_per_point(icfg) * rows[1]
@@ -254,12 +325,13 @@ def check_march(icfg, tcfg, packed, rays, weight_bytes):
                         ms, plain_ms, flops, nbytes, None)
 
 
-def check_secant(icfg, tcfg, packed, rays, weight_bytes):
+def check_secant(icfg, tcfg, packed, rays, weight_bytes, tile_ms, sdf_err):
     """Brackets from a plain 100-sample pass over the bench rays: each
     ray's first sign crossing, as the trace's sampler picks it."""
     import torch
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
     from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
+    from mvsdf_tpu_torch.tracing.sphere_trace import _secant
     L = icfg.multires
     org, dirs, mi, t_near, t_far = rays
     o, d = org[mi], dirs[mi]
@@ -282,17 +354,42 @@ def check_secant(icfg, tcfg, packed, rays, weight_bytes):
     k = tcfg.n_secant_steps
     got = S.secant(packed, L, k, *args)
     ref = S.secant_reference(packed, L, k, *args)
+    host = _secant(k, lambda x: K.sdf_mlp_xyz(packed, L, x), *args)
+    # the f32 SDF's slope along each ray at its root: an SDF error e moves
+    # a root by e / |slope|
+    sdf = lambda z: K.sdf_mlp_xyz_reference(packed, L,
+                                            args[0] + z[:, None] * args[1])
+    slope = (sdf(ref + SLOPE_H) - sdf(ref - SLOPE_H)).abs() / (2 * SLOPE_H)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
     err = diff.max().item()
-    log(f"[kernel] secant on {n} bracketed bench rays: max|dz| = {err:.3e},"
-        f" worst |dz| / (atol + rtol |z|) = "
-        f"{(diff / (SECANT_ATOL + SECANT_RTOL * ref.abs())).max().item():.3f}"
-        f" (<= 1)")
-    if not (diff <= SECANT_ATOL + SECANT_RTOL * ref.abs()).all():
+    plain_gate = SECANT_ATOL + SECANT_RTOL * ref.abs()
+    gate = plain_gate + 2 * sdf_err / slope
+    worst = torch.argmax(diff / gate)
+    log(f"[kernel] secant on {n} bracketed bench rays against the f32 plain "
+        f"version: max|dz| = {err:.3e}, mean signed dz "
+        f"{(got - ref).mean():.3e}, median |dz| {diff.median():.3e}; "
+        f"{int((diff > plain_gate).sum())} rays beyond atol + rtol |z| "
+        f"(worst ratio {(diff / plain_gate).max().item():.3f}); worst |dz| /"
+        f" (atol + rtol |z| + 2 x {sdf_err:.3e} / |slope|) = "
+        f"{(diff / gate).max().item():.3f} (<= 1), on a ray of slope "
+        f"{slope[worst].item():.4f}, |dz| {diff[worst].item():.3e}; least "
+        f"slope {slope.min().item():.4f}")
+    h_diff = (got - host).abs()
+    log(f"[kernel] secant against the host-driven secant through "
+        f"sdf_mlp_xyz: max|dz| = {h_diff.max().item():.3e}, worst |dz| / "
+        f"({HOST_TOL:g} (1 + |z|)) = "
+        f"{(h_diff / (HOST_TOL * (1 + host.abs()))).max().item():.3f} (<= 1)")
+    if not (diff <= gate).all():
         raise AssertionError("secant disagrees with its plain version")
+    if not (h_diff <= HOST_TOL * (1 + host.abs())).all():
+        raise AssertionError("secant disagrees with the host-driven secant "
+                             "on the same arithmetic")
     ms = cuda_ms(lambda: S.secant(packed, L, k, *args))
     plain_ms = cuda_ms(lambda: S.secant_reference(packed, L, k, *args))
+    log(f"[kernel] secant: {-(-n // 64)} blocks of 64 rays, {k} dependent "
+        f"evaluations x {tile_ms:.4f} ms a one-tile launch = "
+        f"{k * tile_ms:.3f} ms, the floor of any launch")
     flops = K.flops_per_point(icfg) * n * k
     nbytes = n * (36 + 4) + weight_bytes
     return kernel_entry("secant", "secant.cu",
@@ -447,16 +544,17 @@ def main():
     batch = scene_to_torch(scene, dev)
     with torch.no_grad():
         packed = K.pack_sdf_weights(net.implicit)
-        # the f32 fields, which the secant and the march read
-        weight_bytes = 4 * sum(
-            t.numel() for n, t in zip(packed._fields, packed)
-            if isinstance(t, torch.Tensor) and n not in ("w_tc", "v_tc"))
+        # the split weights, which every kernel reads
+        weight_bytes = 2 * packed.w_tc.numel() + 4 * (packed.v_tc.numel() + 1)
         x = torch.rand((N_KERNEL, 3), generator=gen, device=dev) * 2 - 1
         pe = positional_encoding(x, icfg.multires).contiguous()
-        entries = check_sdf_mlps(net.implicit, packed, x, pe)
+        entries, tile_ms = check_sdf_mlps(net.implicit, packed, x, pe,
+                                          weight_bytes)
         rays = bench_rays(batch, tcfg)
-        entries.append(check_secant(icfg, tcfg, packed, rays, weight_bytes))
-        entries.append(check_march(icfg, tcfg, packed, rays, weight_bytes))
+        entries.append(check_secant(icfg, tcfg, packed, rays, weight_bytes,
+                                    tile_ms, entries[1]["max_abs_err"]))
+        entries.append(check_march(icfg, tcfg, packed, rays, weight_bytes,
+                                   tile_ms))
 
     # 3-6. the main path in both trace configurations
     state, launches = train("train", cfg, batch, gen, dev,
@@ -468,6 +566,12 @@ def main():
                               some_step=("sdf_mlp_xyz", "secant"),
                               never=("sdf_mlp",))
     eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
+    # the march's rows on the field the training steps left: rays take more
+    # line searches on it than on the seed-0 sphere
+    with torch.no_grad():
+        march_rows(f"weights after {WARMUP + TIMED} bench_phaseB_fused steps",
+                   tcfg, K.pack_sdf_weights(state.net.implicit),
+                   icfg.multires, rays, tile_ms)
     for e in entries:
         e["launches"] = (launches if e["name"] == "sdf_mlp"
                          else f_launches)[e["name"]]

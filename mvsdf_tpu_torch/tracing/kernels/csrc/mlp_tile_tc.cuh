@@ -1,4 +1,6 @@
-// The SDF-MLP tile on Hopper's tensor cores (sm_90a), used by sdf_mlp.cu.
+// The SDF-MLP tile on Hopper's tensor cores (sm_90a), used by sdf_mlp.cu
+// (one evaluation a block), secant.cu and march.cu (a loop of evaluations
+// in a block).
 //
 // One block evaluates the SDF column of the packed weight-normalized MLP
 // (pack_sdf_weights in sdf_mlp.py) for a tile of 64 rows. Every layer's
@@ -38,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tc {
 
 constexpr int TM = 64;                   // rows per tile: wgmma's M
@@ -70,14 +74,22 @@ struct Weights {
 
 __host__ __device__ inline int pe_lanes(int d_pe) { return (d_pe + 15) & ~15; }
 
+inline bool weights_ok(const Weights& w) {
+  return w.d_pe > 0 && w.n_hid >= 0 && w.n_hid <= MAX_HIDDEN &&
+         (w.n_hid == 32 || (w.skip_mask >> w.n_hid) == 0);
+}
+
 // Host side: the ring's depth for the padded width HP, or 0 if the tile
 // does not fit a block's shared memory; *bytes is the dynamic size.
-inline int plan_stages(int HP, int d_pe, size_t* bytes) {
+// `static_bytes` is the static shared memory of the kernel around the
+// tile: both count against the block's limit.
+inline int plan_stages(int HP, int d_pe, size_t* bytes, int static_bytes) {
   const int fixed = OFF_ACT + 2 * TM * (HP + pe_lanes(d_pe)) * 2;
   const int stage = 16 * HP * 2;
-  int stages = (SMEM_LIMIT - fixed) / stage;
+  const int room = SMEM_LIMIT - static_bytes - fixed;
+  int stages = room / stage;
   if (stages > MAX_STAGES) stages = MAX_STAGES;
-  if (fixed > SMEM_LIMIT || stages < MIN_STAGES) return 0;
+  if (room < 0 || stages < MIN_STAGES) return 0;
   *bytes = (size_t)fixed + (size_t)stages * stage;
   return stages;
 }
@@ -376,66 +388,108 @@ __device__ __forceinline__ void accumulate(float (&acc)[NWG / 2],
   fence_accumulator(acc);
 }
 
-// Evaluates one tile: out[row0 + r] = SDF of row r for row0 + r < n.
-// `fill_pe(PeTile)` is called by the 256 consumer threads (threadIdx.x <
-// CONSUMERS) and writes all TM x KP lanes of the tile's encoding; it may
-// use consumer_sync() and the tile's xyz scratch. Called by all
-// THREADS threads of the block, with `stages` from plan_stages and that
-// much dynamic shared memory.
-template <int NWG, typename FillPe>
-__device__ __forceinline__ void eval_block(const Weights& w, int stages,
-                                           long long row0, int n,
-                                           float* __restrict__ out,
-                                           FillPe fill_pe) {
-  constexpr int HP = 2 * NWG;
-  constexpr uint32_t STAGE = 16 * HP * 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int KP = pe_lanes(w.d_pe);
-  const int tid = threadIdx.x;
-  unsigned char* act_hi = smem_raw + OFF_ACT;
-  unsigned char* act_lo = act_hi + TM * HP * 2;
-  unsigned char* pe_hi = act_lo + TM * HP * 2;
-  unsigned char* pe_lo = pe_hi + TM * KP * 2;
-  const uint32_t smem = smem_addr(smem_raw);
-  const uint32_t ring = smem_addr(pe_lo + TM * KP * 2);
+// One block's tile in its dynamic shared memory (`stages` from plan_stages
+// and that many bytes): the barriers, the warpgroups' partial sums, the
+// points' scratch, the hi and lo activation, the hi and lo encoding, the
+// ring. A kernel evaluates the tile any number of times: tile_init once,
+// then for every evaluation one produce_pass by the producer thread and
+// one consume_eval by the consumers, each side keeping its ring position
+// from one evaluation to the next.
+struct Tile {
+  unsigned char* act_hi;
+  unsigned char* act_lo;
+  unsigned char* pe_hi;
+  unsigned char* pe_lo;
+  float* part;    // [2][TM]: each warpgroup's share of the rows' SDF
+  float* xyz;     // [TM][3]: room for the tile's points
+  uint32_t smem;  // shared-memory address of the barriers
+  uint32_t ring;
+  int KP;
+  int stages;
+};
 
-  if (tid == 0) {
+// The ring positions before the first evaluation: the producer finds every
+// stage empty, the consumers wait for the first fill.
+__device__ __forceinline__ RingPos producer_start() { return {0, 1u}; }
+__device__ __forceinline__ RingPos consumer_start() { return {0, 0u}; }
+
+// Lays the tile out, initialises the ring's barriers and synchronizes the
+// block. Called once by all THREADS threads.
+template <int NWG>
+__device__ __forceinline__ Tile tile_init(const Weights& w, int stages) {
+  constexpr int HP = 2 * NWG;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Tile t;
+  t.KP = pe_lanes(w.d_pe);
+  t.stages = stages;
+  t.act_hi = smem_raw + OFF_ACT;
+  t.act_lo = t.act_hi + TM * HP * 2;
+  t.pe_hi = t.act_lo + TM * HP * 2;
+  t.pe_lo = t.pe_hi + TM * t.KP * 2;
+  t.part = reinterpret_cast<float*>(smem_raw + OFF_PART);
+  t.xyz = reinterpret_cast<float*>(smem_raw + OFF_XYZ);
+  t.smem = smem_addr(smem_raw);
+  t.ring = smem_addr(t.pe_lo + TM * t.KP * 2);
+  if (threadIdx.x == 0) {
     for (int i = 0; i < stages; ++i) {
-      mbar_init(smem + OFF_FULL + 8 * i, 1);               // the producer
-      mbar_init(smem + OFF_EMPTY + 8 * i, CONSUMERS / 32);  // each warp
+      mbar_init(t.smem + OFF_FULL + 8 * i, 1);               // the producer
+      mbar_init(t.smem + OFF_EMPTY + 8 * i, CONSUMERS / 32);  // each warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  return t;
+}
 
-  if (tid >= CONSUMERS) {
-    // producer: one thread keeps the ring full
-    if (tid == CONSUMERS) {
-      const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(w.stream);
-      const int tiles = stream_tiles(w, HP, KP);
-      RingPos pos{0, 1u};  // a fresh stage is empty
-      for (int s = 0; s < tiles; ++s) {
-        mbar_wait(smem + OFF_EMPTY + 8 * pos.slot, pos.parity);
-        bulk_load(ring + pos.slot * STAGE, src + (size_t)s * STAGE, STAGE,
-                  smem + OFF_FULL + 8 * pos.slot);
-        pos.advance(stages);
-      }
-    }
-    return;
+// Streams the weights through the ring once: one evaluation's worth.
+// Called by the producer thread (threadIdx.x == CONSUMERS) alone. Every
+// copy it starts is awaited by that evaluation's consume_eval, so a block
+// whose evaluations all ran leaves with no copy in flight.
+template <int NWG>
+__device__ __forceinline__ void produce_pass(const Tile& t, const Weights& w,
+                                             RingPos& pos) {
+  constexpr int HP = 2 * NWG;
+  constexpr uint32_t STAGE = 16 * HP * 2;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w.stream);
+  const int tiles = stream_tiles(w, HP, t.KP);
+  for (int s = 0; s < tiles; ++s) {
+    mbar_wait(t.smem + OFF_EMPTY + 8 * pos.slot, pos.parity);
+    bulk_load(t.ring + pos.slot * STAGE, src + (size_t)s * STAGE, STAGE,
+              t.smem + OFF_FULL + 8 * pos.slot);
+    pos.advance(t.stages);
   }
+}
 
-  // consumers
+// SDF of the tile's row r after consume_eval.
+__device__ __forceinline__ float tile_sdf(const Tile& t, const Weights& w,
+                                          int r) {
+  return t.part[r] + t.part[TM + r] + __ldg(w.b_out);
+}
+
+// Evaluates the tile once: tile_sdf(t, w, r) is the SDF of row r when it
+// returns. Called by the 256 consumer threads (threadIdx.x < CONSUMERS).
+// `fill_pe(PeTile)` runs first and writes all TM x KP lanes of the tile's
+// encoding; it may use consumer_sync() (it must, between another thread's
+// writes of the points and its own reads) and the tile's xyz scratch. Ends
+// with a consumer barrier: the caller may read every row's SDF and
+// overwrite t.xyz when it returns.
+template <int NWG, typename FillPe>
+__device__ __forceinline__ void consume_eval(const Tile& t, const Weights& w,
+                                             RingPos& pos, FillPe fill_pe) {
+  constexpr int HP = 2 * NWG;
+  const int tid = threadIdx.x;
+  unsigned char* act_hi = t.act_hi;
+  unsigned char* act_lo = t.act_lo;
+  const uint32_t smem = t.smem, ring = t.ring;
+  const int KP = t.KP, stages = t.stages;
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  fill_pe(PeTile{pe_hi, pe_lo, KP,
-                 reinterpret_cast<float*>(smem_raw + OFF_XYZ)});
+  fill_pe(PeTile{t.pe_hi, t.pe_lo, KP, t.xyz});
   fence_async_smem();
   consumer_sync();
 
   float acc[NWG / 2];
-  RingPos pos{0, 0u};
   const float inv_sqrt2 = 0.70710678118654752f;
   // this thread's accumulator: rows 16 warp + lane / 4 (+ 8), columns
   // wg NWG + 8 j + 2 (lane % 4) (+ 1), j < NWG / 8
@@ -445,13 +499,13 @@ __device__ __forceinline__ void eval_block(const Weights& w, int stages,
   for (int L = 0; L <= w.n_hid; ++L) {
     const bool skip = L > 0 && ((w.skip_mask >> (L - 1)) & 1u);
     if (L == 0) {
-      accumulate<NWG>(acc, smem_addr(pe_hi), smem_addr(pe_lo), KP / 16, true,
-                      smem, ring, stages, pos);
+      accumulate<NWG>(acc, smem_addr(t.pe_hi), smem_addr(t.pe_lo), KP / 16,
+                      true, smem, ring, stages, pos);
     } else {
       accumulate<NWG>(acc, smem_addr(act_hi), smem_addr(act_lo), HP / 16,
                       true, smem, ring, stages, pos);
       if (skip)
-        accumulate<NWG>(acc, smem_addr(pe_hi), smem_addr(pe_lo), KP / 16,
+        accumulate<NWG>(acc, smem_addr(t.pe_hi), smem_addr(t.pe_lo), KP / 16,
                         false, smem, ring, stages, pos);
     }
     const float scale = skip ? inv_sqrt2 : 1.f;
@@ -493,17 +547,54 @@ __device__ __forceinline__ void eval_block(const Weights& w, int stages,
       s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
       s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
       s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-      float* part = reinterpret_cast<float*>(smem_raw + OFF_PART);
       if ((lane & 3) == 0) {
         const int r = 16 * warp + (lane >> 2);
-        part[wg * TM + r] = s0;
-        part[wg * TM + r + 8] = s1;
+        t.part[wg * TM + r] = s0;
+        t.part[wg * TM + r + 8] = s1;
       }
       consumer_sync();
-      if (tid < TM && row0 + tid < n)
-        out[row0 + tid] = part[tid] + part[TM + tid] + __ldg(w.b_out);
     }
   }
+}
+
+// --- launching (host side) --------------------------------------------------
+
+// f(std::integral_constant<int, NWG>()) for the instantiation of the padded
+// width HP (each consumer warpgroup's `wgmma` is m64 x n(HP / 2) x k16), or
+// cudaErrorInvalidValue for a width the tile is not built for.
+template <typename F>
+int dispatch_width(int HP, F f) {
+  switch (HP) {
+    case 64:
+      return f(std::integral_constant<int, 32>());
+    case 128:
+      return f(std::integral_constant<int, 64>());
+    case 256:
+      return f(std::integral_constant<int, 128>());
+    case 512:
+      return f(std::integral_constant<int, 256>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Sets the kernel's dynamic shared memory (the tile, beside whatever
+// static shared memory the kernel declares) and launches `blocks` blocks on
+// `stream`; the kernel takes args..., then the weights and the ring's depth.
+// Returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int HP, const Weights& w, int blocks, void* stream,
+           Args... args) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  const int stages = plan_stages(HP, w.d_pe, &smem, (int)attr.sharedSizeBytes);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(args..., w, stages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

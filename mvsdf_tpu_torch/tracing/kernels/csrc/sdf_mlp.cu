@@ -33,12 +33,33 @@ namespace {
 using tc::CONSUMERS;
 using tc::TM;
 
+// One evaluation of the block's tile: out[row0 + r] = SDF of row r for
+// row0 + r < n, the encoding written by fill_pe (see tc::consume_eval).
+template <int NWG, typename FillPe>
+__device__ __forceinline__ void eval_block(const tc::Weights& w, int stages,
+                                           long long row0, int n,
+                                           float* __restrict__ out,
+                                           FillPe fill_pe) {
+  const tc::Tile tile = tc::tile_init<NWG>(w, stages);
+  const int tid = threadIdx.x;
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      tc::RingPos pos = tc::producer_start();
+      tc::produce_pass<NWG>(tile, w, pos);
+    }
+    return;
+  }
+  tc::RingPos pos = tc::consumer_start();
+  tc::consume_eval<NWG>(tile, w, pos, fill_pe);
+  if (tid < TM && row0 + tid < n) out[row0 + tid] = tc::tile_sdf(tile, w, tid);
+}
+
 template <int NWG>
 __global__ void __launch_bounds__(tc::THREADS, 1)
 sdf_mlp_kernel(const float* __restrict__ pe, int n, float* __restrict__ out,
                tc::Weights w, int stages) {
   const long long row0 = (long long)blockIdx.x * TM;
-  tc::eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
+  eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
     for (int i = threadIdx.x; i < TM * t.KP; i += CONSUMERS) {
       const int r = i / t.KP;
       const int k = i - r * t.KP;
@@ -53,7 +74,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 sdf_mlp_xyz_kernel(const float* __restrict__ x, int n, int multires,
                    float* __restrict__ out, tc::Weights w, int stages) {
   const long long row0 = (long long)blockIdx.x * TM;
-  tc::eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
+  eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
     if (threadIdx.x < TM * 3) {
       const long long i = row0 * 3 + threadIdx.x;
       t.xyz[threadIdx.x] = i < 3LL * n ? x[i] : 0.f;
@@ -61,28 +82,6 @@ sdf_mlp_xyz_kernel(const float* __restrict__ x, int n, int multires,
     tc::consumer_sync();
     tc::pe_from_points(t.xyz, multires, w.d_pe, t);
   });
-}
-
-bool weights_ok(const tc::Weights& w) {
-  return w.d_pe > 0 && w.n_hid >= 0 && w.n_hid <= tc::MAX_HIDDEN &&
-         (w.n_hid == 32 || (w.skip_mask >> w.n_hid) == 0);
-}
-
-// Sets the kernel's dynamic shared memory and launches one block per tile;
-// the kernel takes args..., then the weights and the ring's depth.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int HP, const tc::Weights& w, int n, void* stream,
-           Args... args) {
-  size_t smem = 0;
-  const int stages = tc::plan_stages(HP, w.d_pe, &smem);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TM - 1) / TM;
-  kernel<<<blocks, tc::THREADS, smem, (cudaStream_t)stream>>>(args..., w,
-                                                             stages);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -101,18 +100,11 @@ int sdf_mlp_forward(const float* pe, int n, int d_pe, int HP, int n_hid,
   if (n <= 0) return 0;
   const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
                       n_hid, skip_mask};
-  if (!weights_ok(w)) return (int)cudaErrorInvalidValue;
-  switch (HP) {
-    case 64:
-      return launch(sdf_mlp_kernel<32>, HP, w, n, stream, pe, n, out);
-    case 128:
-      return launch(sdf_mlp_kernel<64>, HP, w, n, stream, pe, n, out);
-    case 256:
-      return launch(sdf_mlp_kernel<128>, HP, w, n, stream, pe, n, out);
-    case 512:
-      return launch(sdf_mlp_kernel<256>, HP, w, n, stream, pe, n, out);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (!tc::weights_ok(w)) return (int)cudaErrorInvalidValue;
+  return tc::dispatch_width(HP, [&](auto nwg) {
+    return tc::launch(sdf_mlp_kernel<decltype(nwg)::value>, HP, w,
+                      (n + TM - 1) / TM, stream, pe, n, out);
+  });
 }
 
 // As sdf_mlp_forward, from the points x (n, 3) and the PE's multires
@@ -124,23 +116,12 @@ int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe, int HP,
   if (n <= 0) return 0;
   const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
                       n_hid, skip_mask};
-  if (!weights_ok(w) || multires < 0 || d_pe != 3 * (1 + 2 * multires))
+  if (!tc::weights_ok(w) || multires < 0 || d_pe != 3 * (1 + 2 * multires))
     return (int)cudaErrorInvalidValue;
-  switch (HP) {
-    case 64:
-      return launch(sdf_mlp_xyz_kernel<32>, HP, w, n, stream, x, n, multires,
-                    out);
-    case 128:
-      return launch(sdf_mlp_xyz_kernel<64>, HP, w, n, stream, x, n, multires,
-                    out);
-    case 256:
-      return launch(sdf_mlp_xyz_kernel<128>, HP, w, n, stream, x, n,
-                    multires, out);
-    case 512:
-      return launch(sdf_mlp_xyz_kernel<256>, HP, w, n, stream, x, n,
-                    multires, out);
-  }
-  return (int)cudaErrorInvalidValue;
+  return tc::dispatch_width(HP, [&](auto nwg) {
+    return tc::launch(sdf_mlp_xyz_kernel<decltype(nwg)::value>, HP, w,
+                      (n + TM - 1) / TM, stream, x, n, multires, out);
+  });
 }
 
 }  // extern "C"

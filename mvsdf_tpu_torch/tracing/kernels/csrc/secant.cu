@@ -8,22 +8,27 @@
 // z_pred = -s_lo (z_hi - z_lo) / (s_hi - s_lo) + z_lo, the denominator kept
 // at least 1e-12 in magnitude, as tracing/sphere_trace._secant does.
 //
-// What bounds it: operations. Each step is one full SDF-MLP evaluation per
-// ray (~3.67 MFLOP at full width) against 36 bytes of input and 4 of
-// output per ray, far above the card's ridge point.
+// What bounds it: operations, and below a few thousand rays the chain. Each
+// step is one full SDF-MLP evaluation per ray (~3.67 MFLOP at full width)
+// against 36 bytes of input and 4 of output per ray, far above the card's
+// ridge point; but the steps of a ray depend on each other, so a launch
+// takes at least n_steps evaluations of one tile, however few rays it has.
 //
-// Design: a block of 256 threads owns 32 rays, keeps their brackets in
-// shared memory, and runs the steps as a loop in the block: a prologue
-// writes the positional encoding of the 32 points into the MLP tile
-// (mlp_tile.cuh), the tile evaluates their SDF, and 32 threads update the
-// brackets. The whole refinement is one launch instead of one per step.
-// Rows past n are zero and never written.
-#include "mlp_tile.cuh"
+// Design: a block owns 64 rays, the rows of one tensor-core SDF-MLP tile
+// (mlp_tile_tc.cuh), keeps their brackets in shared memory, and runs the
+// steps as a loop in the block: thread r < 64 writes ray r's point, the
+// consumers write the points' positional encoding and evaluate the tile,
+// and thread r updates its bracket. The producer thread streams the
+// weights n_steps times without waiting to be told: the count is known, so
+// the next step's first tiles arrive while the brackets are updated. The
+// whole refinement is one launch instead of one per step. Rows past n are
+// zero and never written.
+#include "mlp_tile_tc.cuh"
 
 namespace {
 
-using mlp::THREADS;
-using mlp::TM;
+using tc::CONSUMERS;
+using tc::TM;
 
 __device__ __forceinline__ float z_of(float sl, float sh, float zl,
                                       float zh) {
@@ -32,42 +37,53 @@ __device__ __forceinline__ float z_of(float sl, float sh, float zl,
   return __fadd_rn(__fdiv_rn(__fmul_rn(-sl, zh - zl), denom), zl);
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int NWG>
+__global__ void __launch_bounds__(tc::THREADS, 1)
 secant_kernel(const float* __restrict__ org, const float* __restrict__ dirs,
               const float* __restrict__ z_lo, const float* __restrict__ z_hi,
               const float* __restrict__ s_lo, const float* __restrict__ s_hi,
-              int n, int multires, int n_steps, mlp::Weights w,
-              float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const mlp::Tile t = mlp::make_tile(smem, w.H, w.d_pe);
-  __shared__ float o[TM * 3], d[TM * 3], xyz[TM * 3];
+              int n, int multires, int n_steps, float* __restrict__ out,
+              tc::Weights w, int stages) {
+  __shared__ float o[TM * 3], d[TM * 3];
   __shared__ float zl[TM], zh[TM], sl[TM], sh[TM], zp[TM];
+  const tc::Tile tile = tc::tile_init<NWG>(w, stages);
   const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * TM;
-  if (tid < TM * 3) {
-    const long long i = row0 * 3 + tid;
-    const bool ok = i < 3LL * n;
-    o[tid] = ok ? org[i] : 0.f;
-    d[tid] = ok ? dirs[i] : 0.f;
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      tc::RingPos pos = tc::producer_start();
+      for (int s = 0; s < n_steps; ++s) tc::produce_pass<NWG>(tile, w, pos);
+    }
+    return;
   }
+  const long long row0 = (long long)blockIdx.x * TM;
+  const long long row = row0 + tid;
+  // org + z_pred dirs of ray tid, rounded as the plain version
+  auto point = [&]() {
+    for (int k = 0; k < 3; ++k)
+      tile.xyz[3 * tid + k] =
+          __fadd_rn(o[3 * tid + k], __fmul_rn(zp[tid], d[3 * tid + k]));
+  };
   if (tid < TM) {
-    const long long row = row0 + tid;
     const bool ok = row < n;
+    for (int k = 0; k < 3; ++k) {
+      o[3 * tid + k] = ok ? org[3 * row + k] : 0.f;
+      d[3 * tid + k] = ok ? dirs[3 * row + k] : 0.f;
+    }
     zl[tid] = ok ? z_lo[row] : 0.f;
     zh[tid] = ok ? z_hi[row] : 0.f;
     sl[tid] = ok ? s_lo[row] : 0.f;
     sh[tid] = ok ? s_hi[row] : 0.f;
     zp[tid] = z_of(sl[tid], sh[tid], zl[tid], zh[tid]);
+    point();
   }
-  __syncthreads();
+  tc::RingPos pos = tc::consumer_start();
   for (int s = 0; s < n_steps; ++s) {
-    if (tid < TM * 3)  // org + z_pred dirs, rounded as the plain version
-      xyz[tid] = __fadd_rn(o[tid], __fmul_rn(zp[tid / 3], d[tid]));
-    __syncthreads();
-    mlp::pe_tile(xyz, multires, t);
-    mlp::eval_tile(w, t);
+    tc::consume_eval<NWG>(tile, w, pos, [&](const tc::PeTile& t) {
+      tc::consumer_sync();  // the points are written
+      tc::pe_from_points(t.xyz, multires, w.d_pe, t);
+    });
     if (tid < TM) {
-      const float v = t.sdf[tid];
+      const float v = tc::tile_sdf(tile, w, tid);
       if (v > 0.f) {
         zl[tid] = zp[tid];
         sl[tid] = v;
@@ -77,10 +93,9 @@ secant_kernel(const float* __restrict__ org, const float* __restrict__ dirs,
         sh[tid] = v;
       }
       zp[tid] = z_of(sl[tid], sh[tid], zl[tid], zh[tid]);
+      point();
     }
-    __syncthreads();
   }
-  const long long row = row0 + tid;
   if (tid < TM && row < n) out[row] = zp[tid];
 }
 
@@ -90,28 +105,25 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Device pointers to contiguous f32 arrays: org, dirs (n, 3);
-// z_lo, z_hi, s_lo, s_hi (n); the weights as mlp::Weights lists them
+// z_lo, z_hi, s_lo, s_hi (n); the weights as sdf_mlp_forward takes them
 // (d_pe must be 3 (1 + 2 multires)); out (n) receives z_pred.
 int secant_forward(const float* org, const float* dirs, const float* z_lo,
                    const float* z_hi, const float* s_lo, const float* s_hi,
-                   int n, int multires, int n_steps, int d_pe,
-                   const float* w_in, const float* b_in, const float* w_hid,
-                   const float* b_hid, int n_hid, unsigned skip_mask,
-                   const float* w_skip_pe, const float* w_out,
-                   const float* b_out, int H, float* out, void* stream) {
+                   int n, int multires, int n_steps, int d_pe, int HP,
+                   int n_hid, unsigned skip_mask, const void* w_stream,
+                   const float* w_vec, const float* b_out, float* out,
+                   void* stream) {
   if (n <= 0) return 0;
-  const mlp::Weights w{w_in,  b_in, w_hid, b_hid, w_skip_pe, w_out,
-                       b_out, d_pe, H,     n_hid, skip_mask};
-  if (!mlp::weights_ok(w) || multires < 0 || n_steps < 0 ||
+  const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
+                      n_hid, skip_mask};
+  if (!tc::weights_ok(w) || multires < 0 || n_steps < 0 ||
       d_pe != 3 * (1 + 2 * multires))
     return (int)cudaErrorInvalidValue;
-  size_t smem;
-  cudaError_t err = mlp::allow_tile_smem(secant_kernel, w, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((n + TM - 1) / TM);
-  secant_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      org, dirs, z_lo, z_hi, s_lo, s_hi, n, multires, n_steps, w, out);
-  return (int)cudaGetLastError();
+  return tc::dispatch_width(HP, [&](auto nwg) {
+    return tc::launch(secant_kernel<decltype(nwg)::value>, HP, w,
+                      (n + TM - 1) / TM, stream, org, dirs, z_lo, z_hi, s_lo,
+                      s_hi, n, multires, n_steps, out);
+  });
 }
 
 }  // extern "C"

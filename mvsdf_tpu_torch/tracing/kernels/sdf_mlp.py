@@ -2,7 +2,8 @@
 wrappers.
 
 Two kernels, both in ``csrc/sdf_mlp.cu`` on the tensor-core MLP tile of
-``csrc/mlp_tile_tc.cuh``:
+``csrc/mlp_tile_tc.cuh`` (which the fused secant and march kernels loop
+over too):
 
 - ``sdf_mlp`` takes the positional encoding pe (N, d_pe). It replaces the
   TPU kernel ``mvsdf_tpu/tracing/pallas/sdf_kernel.py`` (``pallas_sdf_apply``,
@@ -18,8 +19,8 @@ hi = bf16(v) and lo = bf16(v - hi), summed in f32.
 
 - ``pack_sdf_weights`` folds weight norm into effective weights once per
   step and zero-pads every hidden layer to the width H (the f32 fields;
-  the fused secant and march kernels take them), then splits and tiles
-  them for the tensor-core tile (``w_tc``, ``v_tc``).
+  the plain versions read them), then splits and tiles them for the
+  tensor-core tile (``w_tc``, ``v_tc``; every kernel takes these).
 - ``sdf_mlp_reference`` and ``sdf_mlp_xyz_reference`` are the plain f32
   PyTorch versions of the kernels' function: the yardstick the kernels are
   held to. ``sdf_mlp_split_reference`` is the plain version of the kernels'
@@ -253,11 +254,7 @@ def sdf_mlp_split_reference(packed: PackedSDF,
 # --- launching ------------------------------------------------------------
 
 PTR, INT = ctypes.c_void_p, ctypes.c_int
-# the packed f32 weights as the C entry points of the march and the secant
-# take them
-WEIGHT_ARGTYPES = (INT, PTR, PTR, PTR, PTR, INT, ctypes.c_uint, PTR, PTR, PTR,
-                   INT)
-# the packed split weights as the entry points of sdf_mlp.cu take them
+# the packed split weights as every kernel's C entry point takes them
 TC_WEIGHT_ARGTYPES = (INT, INT, INT, ctypes.c_uint, PTR, PTR, PTR)
 
 
@@ -289,21 +286,8 @@ def _skip_mask(packed: PackedSDF) -> int:
     return sum(1 << j for j, s in enumerate(packed.skip) if s)
 
 
-def weight_args(packed: PackedSDF, device: torch.device) -> list:
-    """The packed f32 weights as the C entry points take them
-    (WEIGHT_ARGTYPES), after checking they are contiguous f32 on
-    ``device``."""
-    check_tensors(device, **{f"packed.{n}": t for n, t in
-                             zip(PackedSDF._fields, packed)
-                             if isinstance(t, torch.Tensor) and n != "w_tc"})
-    return [packed.d_pe, packed.w_in.data_ptr(), packed.b_in.data_ptr(),
-            packed.w_hid.data_ptr(), packed.b_hid.data_ptr(),
-            len(packed.skip), _skip_mask(packed), packed.w_skip_pe.data_ptr(),
-            packed.w_out.data_ptr(), packed.b_out.data_ptr(), packed.H]
-
-
 def tc_weight_args(packed: PackedSDF, device: torch.device) -> list:
-    """The packed split weights as sdf_mlp.cu takes them
+    """The packed split weights as the C entry points take them
     (TC_WEIGHT_ARGTYPES), after checking their types, sizes and device."""
     HP, KP = tc_width(packed.H), _round_up(packed.d_pe, TC_K)
     n_hid = len(packed.skip)

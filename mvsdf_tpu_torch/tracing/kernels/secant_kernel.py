@@ -3,10 +3,10 @@ wrapper.
 
 Replaces the TPU kernel ``mvsdf_tpu/tracing/pallas/secant_kernel.py``
 (``pallas_secant``, ``pl.pallas_call`` at line 137). The kernel is
-``csrc/secant.cu``: all ``n_steps`` secant steps of a ray in one launch,
-the brackets in shared memory, the SDF-MLP (with the positional encoding
-computed in the kernel) inside the loop. Its header says what bounds it
-and what its design does about it.
+``csrc/secant.cu``: all ``n_steps`` secant steps of 64 rays a block in one
+launch, the brackets in shared memory, the tensor-core SDF-MLP tile (with
+the positional encoding computed in the kernel) inside the loop. Its
+header says what bounds it and what its design does about it.
 
 - ``secant_reference`` is the plain version: the trace's own ``_secant``
   on the plain xyz MLP.
@@ -20,9 +20,9 @@ import torch
 
 from ..sphere_trace import _secant
 from . import build
-from .sdf_mlp import (INT, PTR, WEIGHT_ARGTYPES, PackedSDF,
+from .sdf_mlp import (INT, PTR, TC_WEIGHT_ARGTYPES, PackedSDF,
                       check_multires, check_tensors, on_cpu, raise_on_error,
-                      sdf_mlp_xyz_reference, stream, weight_args)
+                      sdf_mlp_xyz_reference, stream, tc_weight_args)
 
 
 def secant_reference(packed: PackedSDF, multires: int, n_steps: int, org,
@@ -37,13 +37,13 @@ def _launch(packed, multires, n_steps, org, dirs, z_lo, z_hi, s_lo, s_hi):
     dev = org.device
     check_tensors(dev, org=org, dirs=dirs, z_lo=z_lo, z_hi=z_hi, s_lo=s_lo,
                   s_hi=s_hi)
-    wargs = weight_args(packed, dev)
+    wargs = tc_weight_args(packed, dev)
     n = org.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out
     fn = build.function("secant_forward",
-                        (PTR,) * 6 + (INT,) * 3 + WEIGHT_ARGTYPES +
+                        (PTR,) * 6 + (INT,) * 3 + TC_WEIGHT_ARGTYPES +
                         (PTR, PTR))
     raise_on_error(fn(org.data_ptr(), dirs.data_ptr(), z_lo.data_ptr(),
                       z_hi.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(), n,

@@ -14,7 +14,8 @@ from mvsdf_tpu_torch.fields.embedder import positional_encoding
 from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
 from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
 from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
-from mvsdf_tpu_torch.tracing.sphere_trace import TracerConfig
+from mvsdf_tpu_torch.tracing.sphere_trace import (TracerConfig, _secant,
+                                                  _sphere_trace)
 
 SMALL = dict(feature_vector_size=16, dims=(64,) * 4, skip_in=(2,))
 WIDTHS = pytest.mark.parametrize("kw", [SMALL, {}],
@@ -104,30 +105,35 @@ def test_sdf_mlp_xyz_kernel_matches_plain_version(cuda, kw):
         assert (got - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.cuda
-@WIDTHS
-def test_secant_kernel_matches_plain_version(cuda, kw):
-    """Brackets at each ray's first sign crossing of 64 plain samples;
-    |kernel - plain| <= 1e-4 + 1e-4 |z| (the secant divides by an SDF
-    difference)."""
-    torch.manual_seed(0)
-    packed = _packed(kw, cuda, 0.0)   # the geometric init's sphere
-    org, dirs, mi, t_near, t_far = _rays(40000, cuda, 0.5)
-    ts = t_near[:, None] + torch.linspace(0, 1, 64, device=cuda) * (
+def _brackets(packed, device, count):
+    """Secant arguments of at least ``count`` rays: brackets at each ray's
+    first sign crossing of 64 plain samples."""
+    org, dirs, mi, t_near, t_far = _rays(40000, device, 0.5)
+    ts = t_near[:, None] + torch.linspace(0, 1, 64, device=device) * (
         t_far - t_near)[:, None]
     with torch.no_grad():
         v = K.sdf_mlp_xyz_reference(packed, 6, (
             org[:, None] + ts[..., None] * dirs[:, None]).reshape(-1, 3)
         ).reshape(-1, 64)
     first = torch.argmax((v < 0).int(), 1)
-    ok = mi & (v < 0).any(1) & (first > 0)
-    rows = torch.nonzero(ok)[:, 0]
-    assert rows.numel() >= 4097
-    for n in (1, 31, 4097):
-        r = rows[:n]
-        i = first[r]
-        args = (org[r], dirs[r], ts[r, i - 1], ts[r, i], v[r, i - 1],
-                v[r, i])
+    r = torch.nonzero(mi & (v < 0).any(1) & (first > 0))[:, 0]
+    assert r.numel() >= count
+    i = first[r]
+    return (org[r], dirs[r], ts[r, i - 1], ts[r, i], v[r, i - 1], v[r, i])
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_secant_kernel_matches_plain_version(cuda, kw):
+    """|kernel - plain| <= 1e-4 + 1e-4 |z| (the secant divides by an SDF
+    difference); ray counts across the 64-ray block's edges; and against
+    the trace's own _secant through the sdf_mlp_xyz kernel, the same
+    arithmetic on the same points: 1e-6 + 1e-6 |z|."""
+    torch.manual_seed(0)
+    packed = _packed(kw, cuda, 0.0)   # the geometric init's sphere
+    rays = _brackets(packed, cuda, 4097)
+    for n in (1, 63, 64, 65, 4097):
+        args = tuple(a[:n].contiguous() for a in rays)
         before = S.secant.launches
         got = S.secant(packed, 6, 8, *args)
         torch.cuda.synchronize()
@@ -135,31 +141,81 @@ def test_secant_kernel_matches_plain_version(cuda, kw):
         ref = S.secant_reference(packed, 6, 8, *args)
         assert got.shape == (n,)
         assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+        host = _secant(8, lambda x: K.sdf_mlp_xyz(packed, 6, x), *args)
+        assert ((got - host).abs() <= 1e-6 + 1e-6 * host.abs()).all()
+
+
+def _check_march(got, ref, rows, rows_ref, n):
+    agree = got[0] == ref[0]
+    assert agree.float().mean().item() >= 0.999
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.shape == (n,) and torch.isfinite(a).all()
+        assert (a - b)[agree].abs().max().item() <= 1e-4
+    evaluated, used = rows.tolist()
+    assert abs(used - int(rows_ref[1])) <= 0.01 * int(rows_ref[1])
+    assert evaluated >= used and evaluated % 64 == 0
 
 
 @pytest.mark.cuda
 @WIDTHS
-def test_sphere_march_kernel_matches_plain_version(cuda, kw):
+@pytest.mark.parametrize("n", [1, 31, 63, 65, 4097])
+def test_sphere_march_kernel_matches_plain_version(cuda, kw, n):
     """Unfinished masks agree on >= 99.9% of rays, t_s and t_e within 1e-4
-    where they agree; the rows the kernel counts match the plain version's
-    to 1%."""
+    where they agree (the tile's SDF is within ~2e-5 of f32, so a ray may
+    stop an iteration apart); the rows the kernel uses within 1% of the
+    plain version's, the rows it evaluates whole 64-row tiles."""
     torch.manual_seed(0)
     packed = _packed(kw, cuda, 0.02)
     tcfg = TracerConfig()
-    for n in (1, 31, 4097):
-        rays = _rays(n, cuda, 0.9)
-        rows = torch.zeros(2, dtype=torch.int64, device=cuda)
-        rows_ref = torch.zeros_like(rows)
-        before = M.sphere_march.launches
-        got = M.sphere_march(tcfg, packed, 6, *rays, rows=rows)
-        torch.cuda.synchronize()
-        assert M.sphere_march.launches == before + 1
-        ref = M.sphere_march_reference(tcfg, packed, 6, *rays,
-                                       rows=rows_ref)
-        agree = got[0] == ref[0]
-        assert agree.float().mean().item() >= 0.999
-        for a, b in zip(got[1:], ref[1:]):
-            assert a.shape == (n,)
-            assert (a - b)[agree].abs().max().item() <= 1e-4
-        diff = (rows - rows_ref).abs()
-        assert (diff <= 0.01 * rows_ref).all(), (rows, rows_ref)
+    rays = _rays(n, cuda, 0.9)
+    rows = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rows_ref = torch.zeros_like(rows)
+    before = M.sphere_march.launches
+    got = M.sphere_march(tcfg, packed, 6, *rays, rows=rows)
+    torch.cuda.synchronize()
+    assert M.sphere_march.launches == before + 1
+    ref = M.sphere_march_reference(tcfg, packed, 6, *rays, rows=rows_ref)
+    _check_march(got, ref, rows, rows_ref, n)
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_sphere_march_is_the_same_for_shuffled_rays(cuda, kw):
+    """Which block and slot a ray lands in, and beside which rays, must not
+    reach its values: a shuffled copy gives every ray the same bits. And
+    against the trace's own host-driven march through the sdf_mlp_xyz
+    kernel (the same arithmetic on the same points): equal masks, |dt| <=
+    1e-6."""
+    torch.manual_seed(0)
+    packed = _packed(kw, cuda, 0.02)
+    tcfg = TracerConfig()
+    rays = _rays(4097, cuda, 0.9)
+    got = M.sphere_march(tcfg, packed, 6, *rays)
+    perm = torch.randperm(4097, device=cuda)
+    shuffled = M.sphere_march(tcfg, packed, 6,
+                              *(a[perm].contiguous() for a in rays))
+    for a, b in zip(got, shuffled):
+        assert torch.equal(a[perm], b)
+    host = _sphere_trace(tcfg, lambda x: K.sdf_mlp_xyz(packed, 6, x), *rays)
+    assert torch.equal(got[0], host[0])
+    for a, b in zip(got[1:], host[1:]):
+        assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sphere_march_with_no_ray_to_march(cuda):
+    """Rays none of which meets the sphere cost no tile row and get t = 0;
+    no ray at all launches nothing."""
+    packed = _packed(SMALL, cuda, 0.02)
+    tcfg = TracerConfig()
+    org, dirs, mi, t_near, t_far = _rays(1000, cuda, 0.9)
+    away = (org, -dirs, torch.zeros_like(mi), t_near, t_far)
+    rows = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = M.sphere_march(tcfg, packed, 6, *away, rows=rows)
+    torch.cuda.synchronize()
+    assert not got[0].any() and not got[1].any() and not got[2].any()
+    assert rows.tolist() == [0, 0]
+    before = M.sphere_march.launches
+    none = M.sphere_march(tcfg, packed, 6, *(a[:0] for a in away))
+    assert M.sphere_march.launches == before
+    assert all(a.shape == (0,) for a in none)

@@ -6,8 +6,10 @@ hold the plain versions against ``pallas_sdf_apply(in_kernel_pe=True)``,
 ``pallas_secant`` and ``pallas_sphere_trace`` in interpret mode and
 against the JAX package's ``_secant`` and ``_sphere_trace``; then the
 port's ``trace_rays`` with the three in place against the JAX package's
-with its interpret-mode kernels. The CUDA kernels themselves run only on
-a GPU: tests/test_torch_cuda.py. The whole fused slice (render, losses and
+with its interpret-mode kernels. The march kernel's control flow (ray
+slots refilled from a queue, a state machine per ray) has a plain model,
+held here against the lockstep plain version. The CUDA kernels themselves
+run only on a GPU: tests/test_torch_cuda.py. The whole fused slice (render, losses and
 gradients) is in tests/test_torch_step.py.
 
 Tolerances: SDF values 2e-5 absolute + 1e-5 relative (f32 sums in another
@@ -174,7 +176,8 @@ def test_sphere_march_matches_pallas_and_xla():
 
     t_st._sphere_trace(t_st.TracerConfig(), counted, *ta)
     assert int(rows[1]) == sum(evaluated)
-    assert int(rows[0]) % M.ROWS == 0 and int(rows[0]) >= int(rows[1])
+    # lockstep: every row at the first evaluation and at each trip
+    assert int(rows[0]) == 2 * 256 * (1 + 10 * (1 + 3))
 
 
 @pytest.fixture(scope="module")
@@ -194,6 +197,58 @@ def trace_setup():
     mask = rng.uniform(size=dirs.shape[:2]) < 0.5
     steps = rng.uniform(size=100).astype(np.float32)
     return jcfg, params, net, org, dirs, mask, steps
+
+
+def _march_rays(name, trace_setup):
+    """(net, leading shape, org, dirs) of a named ray set."""
+    if name == "steep1024":
+        _, _, net, org, dirs, _, _ = trace_setup
+        return net, org.shape[:2], org.reshape(-1, 3), dirs.reshape(-1, 3)
+    _, _, net = _pair(MARCH, noise=0.02)
+    n = int(name)
+    org, dirs = _rays(256, seed=2)
+    return net, (2, 128) if n == 256 else (n,), org[:n], dirs[:n]
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("slots", [4, 32])
+@pytest.mark.parametrize("rays", ["1", "31", "256", "steep1024"])
+def test_march_scheduler_model_matches_lockstep(trace_setup, rays, slots,
+                                                blocks):
+    """The plain model of the kernel's scheduler (a queue of rays, slots,
+    a state machine per ray) against the lockstep plain version: the same
+    masks and rows used; t within 3e-5, because the model evaluates other
+    batches of rows than the lockstep version and a CPU matmul rounds
+    differently at another batch size. Ray sets: the 256-ray fixture of
+    test_sphere_march_matches_pallas_and_xla (some rays miss the sphere,
+    some end unfinished), its first 1 and 31 rays, and the steep field's
+    1024 rays."""
+    net, lead, org, dirs = _march_rays(rays, trace_setup)
+    mi, tn, tf = _intersect(org, dirs)
+    packed = K.pack_sdf_weights(net)
+    cfg = t_st.TracerConfig()
+    args = [torch.from_numpy(np.ascontiguousarray(a)).reshape(
+        lead + a.shape[1:]) for a in (org, dirs, mi, tn, tf)]
+    rows, rows_ref = (torch.zeros(2, dtype=torch.int64) for _ in range(2))
+    want = M.sphere_march_reference(cfg, packed, 6, *args, rows=rows_ref)
+    detail = {}
+    got = M.sphere_march_slots_reference(cfg, packed, 6, *args, rows=rows,
+                                         slots=slots, blocks=blocks,
+                                         detail=detail)
+    assert got[0].shape == lead and got[1].shape == lead
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=3e-5)
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), atol=3e-5)
+    evaluated, used = rows.tolist()
+    assert used == int(rows_ref[1]) and used >= 2 * int(mi.sum())
+    assert evaluated % (2 * slots) == 0 and evaluated >= used
+    assert used <= detail["live_rows"] <= evaluated
+    assert evaluated <= 2 * slots * blocks * detail["rounds"]
+    assert detail["drained"] <= detail["rounds"]
+    assert (1 if mi.any() else 0) <= detail["longest_ray"] <= min(
+        detail["rounds"], 1 + 10 * (1 + 3))
+    if rays in ("256", "steep1024"):
+        assert want[0].any() and not mi.all()
 
 
 @pytest.mark.parametrize("case", ["eval", "train_unified_nofill"])

@@ -214,5 +214,3 @@ def test_tc_weight_args_check_the_stream():
         K.tc_weight_args(packed._replace(w_tc=packed.w_tc.float()), cpu)
     with pytest.raises(ValueError):
         K.tc_weight_args(packed._replace(v_tc=packed.v_tc[:, :32]), cpu)
-    # the f32 fields go to the march and the secant as before
-    assert len(K.weight_args(packed, cpu)) == len(K.WEIGHT_ARGTYPES)
