@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, drives the two trace
 configurations of the main path (phase-B training steps of the full-size
-model at the bench shapes, then an eval render) through them, and prints
+model at the bench shapes, then an eval render) through them, trains a
+DTU-sized scene directory end to end through the training CLI, and prints
 what it measured.
 
     python3 chip_smoke.py
@@ -30,16 +31,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. eval_fused   phase 4 in bench_phaseB_fused; then the march's rows
                   evaluated / used once more, on the field those training
                   steps left
-Every kernel count is set to 0 just before each of phases 3-6 and read just
+  7. cli          writes a synthetic scene directory at DTU's sizes (49
+                  views, 1600x1200 images and masks, 800x600 depth maps),
+                  then trains it through the training CLI in this process
+                  (--pallas, random FeatExt weights, full-width model, B=8
+                  x P=4096, epochs 0..6: phases A, B, C; a checkpoint and a
+                  mesh snapshot every epoch, a full render at epoch 4) and
+                  gates what it wrote; the host PNG unfilter against its
+                  numpy version; then resumes from epoch 3: the restored
+                  state must equal the saved one exactly, and epochs 4-6
+                  must repeat the first run's losses within RESUME_RTOL
+Every kernel count is set to 0 just before each of phases 3-7 and read just
 after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
 """
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B, P = 8, 4096                 # the bench shapes: 8 images x 4096 rays
@@ -63,6 +78,18 @@ HOST_TOL = 1e-6                # |dt|; |dz| <= HOST_TOL (1 + |z|)
 WARMUP, TIMED = 3, 5
 PEAK_BF16 = 989e12             # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_S = 3.35e12
+# the cli phase: a DTU scan's sizes (image_hd is 2x Vis-MVSNet's depth)
+CLI_VIEWS, CLI_IMG, CLI_DEPTH = 49, (1200, 1600), (600, 800)
+CLI_EPOCHS = 6
+CLI_ARGS = ("--pallas", "--allow_random_features", "--nepoch",
+            str(CLI_EPOCHS), "--batch_size", str(B), "--num_pixels", str(P))
+RESUME_FROM = 3
+# resumed epochs' losses against the first run's, relative: the card's
+# gradient scatters use atomics, so the two runs part by rounding (5.6e-5
+# measured on an H100 at this size)
+RESUME_RTOL = 1e-3
+LOSSES = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
+          "surf_loss")
 
 
 def log(msg):
@@ -505,6 +532,251 @@ def eval_render(tag, cfg, state, batch, must):
                              "with the plain field")
 
 
+class Tee(io.TextIOBase):
+    """Writes through to ``out`` and keeps a copy of the text."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def check_png_unfilter(data_dir):
+    """The host C unfilter against its numpy version on a crop of a view
+    (the numpy version takes tens of seconds for a whole one)."""
+    import numpy as np
+    from mvsdf_tpu_torch.data import png
+    view = png.read_png(os.path.join(data_dir, "image_hd", "000.png"),
+                        native=True)
+    h, w = view.shape[0] // 2, view.shape[1] // 2
+    crop = np.ascontiguousarray(view[h - 100:h + 100, w - 125:w + 125])
+    raw = crop.reshape(crop.shape[0], -1)
+    rows = png.filter_rows(raw, 3)
+    kinds = np.bincount(rows[:, 0], minlength=5).tolist()
+    same = np.array_equal(png.unfilter(rows, 3, native=True),
+                          png.unfilter_reference(rows, 3))
+    log(f"[cli] png unfilter: host C function against numpy on a "
+        f"{crop.shape[1]}x{crop.shape[0]} crop of a view (rows by filter "
+        f"none/sub/up/average/paeth {kinds}): "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same or not np.array_equal(png.unfilter_reference(rows, 3), raw):
+        raise AssertionError("the PNG unfilter disagrees with its numpy "
+                             "version")
+
+
+def train_cli(argv, launches):
+    """Runs the training CLI in this process, counting each epoch's kernel
+    launches into ``launches``; returns the trainer."""
+    from mvsdf_tpu_torch.train import cli, loop
+    train_epoch = loop.Trainer.train_epoch
+
+    def counted(self, epoch):
+        before = counts()
+        out = train_epoch(self, epoch)
+        launches.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    loop.Trainer.train_epoch = counted
+    try:
+        if "--is_continue" not in argv:
+            return cli.main(argv)
+        # the CLI's own setup and run, with the restore checked in between
+        trainer, _ = cli.setup(argv)
+        trainer.maybe_resume(RESUME_FROM)
+        check_restored(trainer)
+        trainer.run(resume=False)
+        return trainer
+    finally:
+        loop.Trainer.train_epoch = train_epoch
+
+
+def check_restored(trainer):
+    """Just after the restore, everything that was saved is back, exactly."""
+    import torch
+    from mvsdf_tpu_torch.train import checkpoints as ckpt
+    tree, rng = ckpt.load_checkpoint(trainer.ckpt_dir, RESUME_FROM,
+                                     map_location=trainer.device)
+    st = trainer.state
+    bad = [k for k, v in st.net.state_dict().items()
+           if not torch.equal(v, tree["net"][k])]
+    saved, live = tree["optimizer"], st.optimizer.state_dict()
+    for i, s in saved["state"].items():
+        bad += [f"adam {i} {k}" for k, v in s.items()
+                if not torch.equal(live["state"][i][k].to(v.device), v)]
+    bad += [f"lr {g['lr']} != {h['lr']}" for g, h in
+            zip(saved["param_groups"], live["param_groups"])
+            if g["lr"] != h["lr"]]
+    if st.scheduler.state_dict() != tree["scheduler"]:
+        bad.append("scheduler")
+    if trainer.rng.bit_generator.state != rng["np_rng"]:
+        bad.append("numpy RNG")
+    if not torch.equal(trainer.generator.get_state(),
+                       torch.from_numpy(rng["torch_generator"])):
+        bad.append("torch generator")
+    if trainer.start_epoch != RESUME_FROM + 1:
+        bad.append(f"start epoch {trainer.start_epoch}")
+    log(f"[cli] restored from epoch {RESUME_FROM}: {len(st.net.state_dict())}"
+        f" tensors, Adam state of {len(saved['state'])} parameters, lr "
+        f"{live['param_groups'][0]['lr']:.3e}, scheduler at epoch "
+        f"{st.scheduler.last_epoch}, numpy RNG and generator state: "
+        f"{'all equal to the saved' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"restored state differs from the saved: {bad}")
+
+
+def metric_rows(trainer):
+    with open(os.path.join(trainer.exp_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_cli_run(trainer, rows, launches, printed):
+    import numpy as np
+    from mvsdf_tpu_torch.data import png
+    epochs = list(range(CLI_EPOCHS + 1))
+    if [r["step"] for r in rows] != epochs:
+        raise AssertionError(f"metrics.jsonl rows {[r['step'] for r in rows]}")
+    bad = [r["step"] for r in rows
+           if not all(np.isfinite(r[k]) for k in LOSSES + ("grad_norm",))]
+    if bad:
+        raise AssertionError(f"non-finite losses in epochs {bad}")
+    phases = [r["phase"] for r in rows]
+    if phases != [0, 1, 1, 2, 2, 2, 2]:
+        raise AssertionError(f"phases by epoch {phases}")
+    # MultiStepLR x0.1 at int(4/6 n) and int(5/6 n), as lr_for_epoch gives
+    ms = [int(m * CLI_EPOCHS) for m in (4 / 6, 5 / 6)]
+    want = [rows[0]["lr"] * 0.1 ** sum(e >= m for m in ms) for e in epochs]
+    if not np.allclose([r["lr"] for r in rows], want, rtol=1e-6, atol=0):
+        raise AssertionError(f"lr by epoch {[r['lr'] for r in rows]}")
+    if min(e["sdf_mlp"] for e in launches) == 0 or any(
+            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
+                                             "sphere_march")):
+        raise AssertionError(f"kernel launches by epoch {launches}")
+    ck = trainer.ckpt_dir
+    steps = sorted(int(d[5:]) for d in os.listdir(ck)
+                   if d.startswith("step_"))
+    latest = open(os.path.join(ck, "latest.txt")).read()
+    if steps != epochs[1:] or latest != str(CLI_EPOCHS):
+        raise AssertionError(f"checkpoints {steps}, latest.txt {latest}")
+    faces = []
+    for e in epochs[1:]:
+        with open(os.path.join(trainer.plots_dir, f"surface_{e}.obj")) as f:
+            faces.append(sum(line.startswith("f ") for line in f))
+    if min(faces) == 0:
+        raise AssertionError(f"faces of the mesh snapshots {faces}")
+    grid = png.read_png(os.path.join(trainer.plots_dir, "rendering_4.png"),
+                        native=True)
+    H, W = CLI_IMG
+    _, idx, rgb = trainer.last_render
+    if grid.shape != (H, 2 * W, 3) or not np.isfinite(rgb).all() or \
+            grid[:, :W].std() == 0:
+        raise AssertionError(f"rendering_4.png {grid.shape}: rendered half "
+                             f"finite {np.isfinite(rgb).all()}, std "
+                             f"{grid[:, :W].std()}")
+    if "plot failed" in printed:
+        raise AssertionError("a mesh snapshot or render failed")
+    lrs = [f"{r['lr']:.2e}" for r in rows]
+    log(f"[cli] {len(rows)} metric rows, losses finite, phases {phases}, lr "
+        f"{lrs}; sdf_mlp launches by epoch "
+        f"{[e['sdf_mlp'] for e in launches]}, the other kernels none; "
+        f"checkpoints {steps}, latest {latest}; mesh faces {faces}; "
+        f"rendering_4.png {grid.shape} (view {idx}), rendered half std "
+        f"{grid[:, :W].std():.2f}")
+
+
+def phase_times(rows, n_rays):
+    """ms/step and rays/s per phase over the steps after each epoch's
+    first."""
+    out = {}
+    for ph, name in enumerate("ABC"):
+        ms = [r["ms_per_step"] for r in rows if r["phase"] == ph]
+        if ms:
+            mean = sum(ms) / len(ms)
+            out[name] = (mean, n_rays / mean * 1e3, ms)
+    return out
+
+
+def cli_phase():
+    """Phase 7: the training CLI on a DTU-sized scene directory, then its
+    resume."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.data.synthetic import write_scene_dir
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
+        t0 = time.perf_counter()
+        data_dir = write_scene_dir(tmp, n_images=CLI_VIEWS, img_hw=CLI_IMG,
+                                   depth_hw=CLI_DEPTH)
+        log(f"[cli] wrote a {CLI_VIEWS}-view scene directory, images "
+            f"{CLI_IMG[1]}x{CLI_IMG[0]}, depth maps {CLI_DEPTH[1]}x"
+            f"{CLI_DEPTH[0]}: {time.perf_counter() - t0:.2f} s")
+        check_png_unfilter(data_dir)
+        argv = ["--data_dir", data_dir, "--exps_folder",
+                os.path.join(tmp, "exps"), "--expname", "smoke", *CLI_ARGS]
+        tee = Tee(sys.stdout)
+        launches = []
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            trainer = train_cli(argv, launches)
+        wall = time.perf_counter() - t0
+        total = counts()
+        rows = metric_rows(trainer)
+        check_cli_run(trainer, rows, launches, "".join(tee.text))
+        sc = trainer.scene
+        log(f"[cli] run 1: {wall:.1f} s in the CLI; scene load "
+            f"{sc.timings['load_s']:.2f} s, of which "
+            f"{sc.timings['png_decode_s']:.2f} s to decode "
+            f"{sc.timings['png_files']} PNGs = "
+            f"{sc.timings['png_decode_s'] / sc.timings['png_files'] * 1e3:.1f}"
+            f" ms each; FeatExt on {sc.n_images} views "
+            f"{sc.timings['featext_s'] * 1e3:.1f} ms (features "
+            f"{tuple(sc.feats.shape)}); device scene cache "
+            f"{trainer.cache.nbytes()} bytes")
+        for name, (ms, rays, each) in phase_times(rows, B * P).items():
+            log(f"[cli] phase {name}: {ms:.1f} ms/step, {rays:.1f} rays/s "
+                f"(epochs' ms/step after their first step "
+                f"{[round(x, 1) for x in each]})")
+        t = trainer.timings
+        log(f"[cli] checkpoint save ms {[round(x, 1) for x in t['save_ms']]}"
+            f"; mesh snapshot ms {[round(x, 1) for x in t['mesh_ms']]}; full "
+            f"render of {CLI_IMG[0] * CLI_IMG[1]} rays "
+            f"{[round(x, 2) for x in t['render_s']]} s; sdf_mlp launches "
+            f"{total['sdf_mlp']}")
+
+        # resume from epoch 3 into the same experiment
+        resumed = []
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            trainer2 = train_cli(argv + ["--is_continue", "--checkpoint",
+                                         str(RESUME_FROM)], resumed)
+        rows2 = metric_rows(trainer2)[len(rows):]
+        if [r["step"] for r in rows2] != list(range(RESUME_FROM + 1,
+                                                    CLI_EPOCHS + 1)):
+            raise AssertionError(f"resumed rows {[r['step'] for r in rows2]}")
+        worst = 0.0
+        for a, b in zip(rows[RESUME_FROM + 1:], rows2):
+            for k in LOSSES:
+                d = abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                worst = max(worst, d)
+        log(f"[cli] resumed: {time.perf_counter() - t0:.1f} s, restore "
+            f"{trainer2.timings['restore_ms'][0]:.1f} ms; epochs "
+            f"{[r['step'] for r in rows2]} losses "
+            f"{[round(r['loss'], 6) for r in rows2]} against "
+            f"{[round(r['loss'], 6) for r in rows[RESUME_FROM + 1:]]}: worst "
+            f"relative difference of a loss term {worst:.3e} (tolerance "
+            f"{RESUME_RTOL:g}); sdf_mlp launches by epoch "
+            f"{[e['sdf_mlp'] for e in resumed]}")
+        if worst > RESUME_RTOL or "plot failed" in "".join(tee.text):
+            raise AssertionError("the resumed run does not repeat the first")
+        log(f"[cli] peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -575,6 +847,9 @@ def main():
     for e in entries:
         e["launches"] = (launches if e["name"] == "sdf_mlp"
                          else f_launches)[e["name"]]
+
+    # 7. the training CLI on a DTU-sized scene directory
+    cli_phase()
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

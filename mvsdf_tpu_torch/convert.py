@@ -1,5 +1,6 @@
-"""Parameter conversion between the JAX package's params pytree and the
-port's state dict.
+"""Parameter conversion between the JAX package's params pytrees and the
+port's state dicts: the SDF and radiance MLPs both ways, and the frozen
+FeatExt CNN (``featext_params_from_jax``).
 
 The JAX pytree is ``{"implicit": [layer, ...], "render": [layer, ...]}``
 with each layer ``{"v": (d_in, d_out), "g": (d_out,), "b": (d_out,)}`` (or
@@ -38,4 +39,46 @@ def params_to_jax(state_dict) -> dict:
         while len(layers) <= int(l):
             layers.append({})
         layers[int(l)][k] = t.detach().cpu().numpy()
+    return out
+
+
+def _bn_from_jax(p, prefix):
+    return {prefix + ".weight": p["gamma"], prefix + ".bias": p["beta"],
+            prefix + ".running_mean": p["mean"],
+            prefix + ".running_var": p["var"]}
+
+
+def _block_from_jax(p, prefix):
+    sd = {prefix + ".conv1.weight": p["conv1"],
+          **_bn_from_jax(p["bn1"], prefix + ".bn1"),
+          prefix + ".conv2.weight": p["conv2"],
+          **_bn_from_jax(p["bn2"], prefix + ".bn2")}
+    if "down_conv" in p:
+        sd[prefix + ".downsample.0.weight"] = p["down_conv"]
+        sd.update(_bn_from_jax(p["down_bn"], prefix + ".downsample.1"))
+    return sd
+
+
+def featext_params_from_jax(params_np) -> Dict[str, torch.Tensor]:
+    """The JAX package's FeatExt parameter tree (``init_feat_ext`` /
+    ``from_torch_state`` layout, numpy arrays) -> the port's ``FeatExt``
+    state dict (the reference's key names; ``load_state_dict``-ready)."""
+    from .data.featext import DEC_NAMES, ENC_NAMES
+    sd = {"init_conv.0.weight": params_np["stem_conv"],
+          **_bn_from_jax(params_np["stem_bn"], "init_conv.1")}
+    for name, blocks in zip(ENC_NAMES, params_np["enc"]):
+        for b, p in enumerate(blocks):
+            sd.update(_block_from_jax(p, f"unet.enc_blocks.{name}.{b}"))
+    for name, dec in zip(DEC_NAMES, params_np["dec"]):
+        prefix = f"unet.dec_blocks.{name}"
+        sd[prefix + ".0.weight"] = dec["deconv"]
+        sd[prefix + ".1.weight"] = dec["post"]
+        sd.update(_block_from_jax(dec["res"][0], prefix + ".2.0"))
+    for i in (1, 2, 3):
+        sd[f"final_conv_{i}.weight"] = params_np[f"head{i}"]
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+           for k, v in sd.items()}
+    out.update({k[:-len("running_var")] + "num_batches_tracked":
+                torch.zeros((), dtype=torch.int64)
+                for k in sd if k.endswith(".running_var")})
     return out

@@ -1,10 +1,17 @@
-"""Synthetic multi-view scene (numpy): pinhole cameras on a ring looking at
-the origin, a unit-scale scene (size=2, center=0), depth maps of a sphere,
-and smooth random frozen feature maps. The same generator as the JAX
-package's test fixture ``tests/golden/scene_fixtures.make_scene``, so one
-seed gives both packages the same data; it is also the scene of the JAX
-package's ``bench.py``."""
+"""Synthetic multi-view scenes (numpy): pinhole cameras on a ring looking at
+the origin, a unit-scale scene (size=2, center=0), depth maps of a sphere.
+
+- ``make_scene``: one batch in memory, with smooth random frozen feature
+  maps. The same generator as the JAX package's test fixture
+  ``tests/golden/scene_fixtures.make_scene``, so one seed gives both
+  packages the same data; it is also the scene of the JAX package's
+  ``bench.py``.
+- ``write_scene_dir``: a scene directory on disk in the reference layout,
+  with rendered images, for ``data/scene.SceneData`` and the training CLI.
+"""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -124,3 +131,100 @@ def scene_to_torch(scene, device) -> dict:
     """The scene's arrays as tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in scene.items()}
+
+
+def _hw(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def render_ring_view(extr, K, hw, cam_pos, sphere_radius):
+    """One view of the ring scene's sphere: (rgb (H, W, 3) uint8, silhouette
+    (H, W) bool, z-depth (H, W) float32, 0 off the sphere). The sphere's
+    albedo varies with its normal, lit from a fixed direction; the
+    background is a smooth gradient."""
+    H, W = hw
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    pix = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)], -1).reshape(-1, 3)
+    dirs_cam = pix @ np.linalg.inv(K).T.astype(np.float32)
+    dirs_w = dirs_cam @ extr[:3, :3].astype(np.float32)
+    dirs_w /= np.linalg.norm(dirs_w, axis=-1, keepdims=True)
+    o = np.asarray(cam_pos, np.float32)
+    b = dirs_w @ o
+    disc = b ** 2 - (o @ o - sphere_radius ** 2)
+    hit = disc > 0
+    tq = -b - np.sqrt(np.maximum(disc, 0))
+    z = np.where(hit, tq * dirs_cam[:, 2] / np.linalg.norm(dirs_cam, axis=-1),
+                 0)
+    n = (o + tq[:, None] * dirs_w) / sphere_radius
+    albedo = np.stack([0.55 + 0.4 * np.sin(6 * n[:, 0]),
+                       0.5 + 0.4 * np.sin(6 * n[:, 1] + 1),
+                       0.5 + 0.4 * np.cos(5 * n[:, 2])], -1)
+    light = np.array([0.3, 0.8, 0.5], np.float32)
+    shade = 0.3 + 0.7 * np.clip(n @ (light / np.linalg.norm(light)), 0, None)
+    u, v = pix[:, 0] / W, pix[:, 1] / H
+    bg = np.stack([0.2 + 0.3 * u, 0.25 + 0.2 * v, 0.35 + 0.1 * u * v], -1)
+    rgb = np.where(hit[:, None], albedo * shade[:, None], bg)
+    rgb = np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    return (rgb.reshape(H, W, 3), hit.reshape(H, W),
+            z.astype(np.float32).reshape(H, W))
+
+
+def write_scene_dir(root, n_images=3, img_hw=32, depth_hw=16,
+                    sphere_radius=0.5):
+    """Writes a scene directory in the reference layout under ``root``
+    (``scene/image_hd/``, ``scene/mask_hd/``, ``scene/depth/*.pfm``,
+    ``scene/cameras_hd.npz``, ``pair.txt``, ``cam_*_flow3.txt``) and returns
+    its ``scene`` path. Cameras on a ring at distance 2.2 look at a sphere
+    of ``sphere_radius``; the images are renders of it, the masks its
+    silhouette, the depth maps its depth at ``depth_hw``. Sizes are ints
+    (square) or (H, W). Each view's source views are its ring neighbours.
+    """
+    from . import formats
+    from .png import write_png
+    data_dir = os.path.join(root, "scene")
+    for sub in ("image_hd", "mask_hd", "depth"):
+        os.makedirs(os.path.join(data_dir, sub))
+    H, W = _hw(img_hw)
+    h, w = _hw(depth_hw)
+    angles = np.linspace(0, 2 * np.pi, n_images, endpoint=False)
+    cam_pos = np.stack([2.2 * np.sin(angles), 0.3 * np.ones_like(angles),
+                        2.2 * np.cos(angles)], -1)
+    extr = np.stack([look_at_extrinsic(p) for p in cam_pos])
+    f = 30.0 * W / 32
+    K_hd = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    K_d = K_hd.copy()
+    K_d[0] *= w / W
+    K_d[1] *= h / H
+
+    cam_npz = {}
+    pair = {"id_list": [str(i) for i in range(n_images)]}
+    ring = lambda i, j: min((j - i) % n_images, (i - j) % n_images)
+    for i in range(n_images):
+        rgb, mask, _ = render_ring_view(extr[i], K_hd, (H, W), cam_pos[i],
+                                        sphere_radius)
+        write_png(os.path.join(data_dir, "image_hd", f"{i:03}.png"), rgb)
+        write_png(os.path.join(data_dir, "mask_hd", f"{i:03}.png"),
+                  mask.astype(np.uint8) * 255)
+        _, _, z = render_ring_view(extr[i], K_d, (h, w), cam_pos[i],
+                                   sphere_radius)
+        formats.write_pfm(os.path.join(data_dir, "depth", f"{i:03}.pfm"), z)
+
+        P = np.zeros((4, 4), np.float32)
+        P[:3] = K_hd @ extr[i][:3]
+        P[3, 3] = 1
+        cam_npz[f"world_mat_{i}"] = P
+        cam_npz[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)  # size 2
+
+        cam = np.zeros((2, 4, 4))
+        cam[0] = extr[i]
+        cam[1][:3, :3] = K_d
+        cam[1][3] = [0.5, 0.01, 256, 0.5 + 0.01 * 255]
+        formats.write_cam(os.path.join(root, f"cam_{i:08}_flow3.txt"), cam)
+        others = sorted((j for j in range(n_images) if j != i),
+                        key=lambda j: ring(i, j))[:2]
+        pair[str(i)] = {"id": str(i), "index": i,
+                        "pair": [str(j) for j in others],
+                        "score": [10.0 - k for k in range(len(others))]}
+    np.savez(os.path.join(data_dir, "cameras_hd.npz"), **cam_npz)
+    formats.write_pair(os.path.join(root, "pair.txt"), pair)
+    return data_dir

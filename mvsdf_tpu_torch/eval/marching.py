@@ -1,0 +1,211 @@
+"""Iso-surface extraction from an SDF grid (port of
+``mvsdf_tpu/eval/marching.py``).
+
+The reference uses skimage's marching_cubes_lewiner on a 512^3 [-1,1]^3 grid
+(``code/utils/plots.py:150-205``, ``evaluation/eval.py:109-125``). skimage is
+not available here; we extract via **marching tetrahedra** (each grid cell
+split into 6 tets), whose case tables are derived programmatically below —
+no hand-copied lookup data — and which produces a closed, consistently
+oriented surface with the same sub-voxel edge interpolation accuracy.
+
+Grid evaluation runs the SDF field on its device in x-slabs (the analog of
+the reference's 50k-point chunks) under ``torch.no_grad``, and the
+triangulation is vectorized numpy on the host (the JAX package's numpy
+path; its optional C++ triangulator is not ported).
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+# Unit-cube corner coordinates
+_CORNERS = np.array([(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+                     (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1)])
+
+# A standard 6-tetrahedra decomposition of the cube around the main diagonal
+# 0-7; every tet lists corner indices (into _CORNERS).
+_TETS = np.array([
+    [0, 1, 3, 7],
+    [0, 3, 2, 7],
+    [0, 2, 6, 7],
+    [0, 6, 4, 7],
+    [0, 4, 5, 7],
+    [0, 5, 1, 7],
+])
+
+
+def _tet_tables():
+    """Derive the 16-case marching-tetrahedra table.
+
+    For each inside/outside labeling of a tet's 4 vertices, triangles are
+    emitted over the cut edges, oriented so the normal points from inside
+    (negative SDF) to outside: for a single inside vertex v with cut edges
+    to (a, b, c), the triangle (va, vb, vc) is ordered by checking the
+    geometric normal against the outward direction; the two-inside case
+    forms a quad split into two triangles.
+    Returns: list over 16 configs of list of triangles, each a tuple of 3
+    edges, each edge = (inside_vertex, outside_vertex).
+    """
+    table = []
+    for config in range(16):
+        inside = [i for i in range(4) if (config >> i) & 1]
+        outside = [i for i in range(4) if not ((config >> i) & 1)]
+        tris = []
+        if len(inside) == 1:
+            v = inside[0]
+            edges = [(v, o) for o in outside]
+            tris = [(edges[0], edges[1], edges[2])]
+        elif len(inside) == 3:
+            v = outside[0]
+            edges = [(i, v) for i in inside]
+            tris = [(edges[0], edges[2], edges[1])]
+        elif len(inside) == 2:
+            a, b = inside
+            c, d = outside
+            # quad vertices around the cut: ac, ad, bd, bc
+            e = [(a, c), (a, d), (b, d), (b, c)]
+            tris = [(e[0], e[1], e[2]), (e[0], e[2], e[3])]
+        table.append(tris)
+    return table
+
+
+_TET_TABLE = _tet_tables()
+
+
+def marching_tetrahedra(volume: np.ndarray, level: float = 0.0,
+                        spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0)
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """volume (nx, ny, nz) indexed [x, y, z] -> (verts (V, 3), faces (F, 3)).
+
+    Vertices on shared cell edges are exactly deduplicated (global edge
+    keys), so the mesh is usable for adjacency/max-flow trimming. Faces are
+    oriented with outward normals (pointing toward positive values).
+    """
+    vol = np.asarray(volume, np.float32)
+    nx, ny, nz = vol.shape
+    if min(nx, ny, nz) < 2 or not (vol.min() < level < vol.max()):
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
+
+    # cell origin indices
+    cx, cy, cz = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1),
+                             np.arange(nz - 1), indexing="ij")
+    cells = np.stack([cx.ravel(), cy.ravel(), cz.ravel()], -1)  # (C, 3)
+
+    # global linear id of a grid vertex
+    def gid(ix, iy, iz):
+        return (ix * ny + iy) * nz + iz
+
+    corner_vals = np.empty((cells.shape[0], 8), np.float32)
+    corner_gids = np.empty((cells.shape[0], 8), np.int64)
+    for c in range(8):
+        off = _CORNERS[c]
+        ix, iy, iz = (cells[:, 0] + off[0], cells[:, 1] + off[1],
+                      cells[:, 2] + off[2])
+        corner_vals[:, c] = vol[ix, iy, iz]
+        corner_gids[:, c] = gid(ix, iy, iz)
+
+    # drop cells with no crossing at all
+    signs = corner_vals < level
+    active = signs.any(1) & (~signs).any(1)
+    corner_vals = corner_vals[active]
+    corner_gids = corner_gids[active]
+
+    tri_edge_a = []  # global ids of inside endpoint
+    tri_edge_b = []  # global ids of outside endpoint
+    for tet in _TETS:
+        tvals = corner_vals[:, tet]          # (C, 4)
+        tgids = corner_gids[:, tet]
+        tin = tvals < level
+        config = (tin * (1 << np.arange(4))).sum(1)  # (C,)
+        for cfg in range(1, 15):
+            rows = np.nonzero(config == cfg)[0]
+            if rows.size == 0:
+                continue
+            for tri in _TET_TABLE[cfg]:
+                ea = np.stack([tgids[rows, i] for (i, _) in tri], 1)  # (R,3)
+                eb = np.stack([tgids[rows, o] for (_, o) in tri], 1)
+                tri_edge_a.append(ea)
+                tri_edge_b.append(eb)
+
+    if not tri_edge_a:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
+
+    ea = np.concatenate(tri_edge_a)  # (F, 3) inside gid per corner
+    eb = np.concatenate(tri_edge_b)  # (F, 3) outside gid per corner
+
+    # dedupe edge vertices globally: key = inside_gid * NV + outside_gid
+    nv = nx * ny * nz
+    keys = ea.astype(np.int64) * nv + eb.astype(np.int64)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    faces = inv.reshape(-1, 3)
+
+    ua = (uniq // nv).astype(np.int64)
+    ub = (uniq % nv).astype(np.int64)
+
+    def gid_to_xyz(g):
+        iz = g % nz
+        iy = (g // nz) % ny
+        ix = g // (nz * ny)
+        return np.stack([ix, iy, iz], -1).astype(np.float32)
+
+    pa = gid_to_xyz(ua)
+    pb = gid_to_xyz(ub)
+    va = vol.ravel()[ua]
+    vb = vol.ravel()[ub]
+    t = (level - va) / np.where(np.abs(vb - va) < 1e-12, 1e-12, vb - va)
+    t = np.clip(t, 0.0, 1.0)[:, None]
+    verts = pa + t * (pb - pa)
+    verts = verts * np.asarray(spacing, np.float32) + np.asarray(
+        origin, np.float32)
+
+    # consistent outward orientation: normal . (outside - inside) > 0
+    v0 = verts[faces[:, 0]]
+    n = np.cross(verts[faces[:, 1]] - v0, verts[faces[:, 2]] - v0)
+    # outward direction estimate per face: mean of (outside - inside) dirs
+    d = ((pb - pa)[faces[:, 0]] + (pb - pa)[faces[:, 1]] +
+         (pb - pa)[faces[:, 2]])
+    flip = (n * d).sum(1) < 0
+    faces[flip] = faces[flip][:, [0, 2, 1]]
+
+    # drop degenerate faces (repeated vertices after dedup)
+    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
+          (faces[:, 0] != faces[:, 2]))
+    return verts, faces[ok]
+
+
+def eval_sdf_grid(sdf_fn: Callable, resolution: int = 512,
+                  bounds=(-1.0, 1.0), slab: int = 8,
+                  device="cpu") -> np.ndarray:
+    """Evaluate sdf_fn (points (..., 3) tensor -> values (...,)) on a uniform
+    grid over bounds^3 -> (res, res, res) indexed [x, y, z], in slabs of
+    ``slab`` x-planes on ``device`` under ``torch.no_grad`` (analog of the
+    50k chunks, ref plots.py:161)."""
+    xs = np.linspace(bounds[0], bounds[1], resolution, dtype=np.float32)
+    yy, zz = np.meshgrid(xs, xs, indexing="ij")
+    yz = torch.from_numpy(np.stack([yy, zz], -1)).to(device)  # (r, r, 2)
+    xs_d = torch.from_numpy(xs).to(device)
+    out = np.empty((resolution, resolution, resolution), np.float32)
+    with torch.no_grad():
+        for i in range(0, resolution, slab):
+            xv = xs_d[i:i + slab]
+            pts = torch.cat([
+                xv[:, None, None, None].expand(-1, resolution, resolution, 1),
+                yz[None].expand(xv.shape[0], -1, -1, -1)], -1)
+            out[i:i + xv.shape[0]] = sdf_fn(pts).float().cpu().numpy()
+    return out
+
+
+def extract_mesh(sdf_fn, resolution: int = 512, bounds=(-1.0, 1.0),
+                 scale_mat: np.ndarray = None, slab: int = 8, device="cpu"):
+    """Full extraction: grid-eval -> marching tetrahedra -> optional world
+    transform by scale_mat (ref eval.py:109-119)."""
+    vol = eval_sdf_grid(sdf_fn, resolution, bounds, slab, device)
+    step = (bounds[1] - bounds[0]) / (resolution - 1)
+    verts, faces = marching_tetrahedra(
+        vol, 0.0, spacing=(step, step, step),
+        origin=(bounds[0], bounds[0], bounds[0]))
+    if scale_mat is not None and len(verts):
+        verts = verts @ scale_mat[:3, :3].T + scale_mat[:3, 3]
+    return verts, faces

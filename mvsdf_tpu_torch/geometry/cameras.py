@@ -1,9 +1,44 @@
 """Camera math (port of ``mvsdf_tpu/geometry/cameras.py``): ray generation,
-ray/bounding-sphere intersection, quaternion -> rotation. Shape-polymorphic
+ray/bounding-sphere intersection, quaternion -> rotation, and the numpy
+decomposition of a projection matrix for data loading. Shape-polymorphic
 over leading batch dims."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def decompose_projection(P: np.ndarray):
+    """Decompose a 3x4 projection matrix P = K [R | t] into intrinsics and
+    camera-to-world pose (same convention as cv2.decomposeProjectionMatrix as
+    used by the reference at ``rend_util.py:25-46``).
+
+    Returns (intrinsics 4x4, pose 4x4) float32 where pose maps camera ->
+    world and pose[:3, 3] is the camera center.
+    """
+    P = np.asarray(P, dtype=np.float64)[:3, :4]
+    M = P[:, :3]
+    # RQ decomposition of M via QR of the flipped transpose.
+    rev = np.array([[0, 0, 1], [0, 1, 0], [1, 0, 0]], dtype=np.float64)
+    Q_, R_ = np.linalg.qr((rev @ M).T)
+    K = rev @ R_.T @ rev
+    R = rev @ Q_.T
+    # Force positive diagonal of K.
+    D = np.diag(np.sign(np.diag(K)))
+    K = K @ D
+    R = D @ R
+    if np.linalg.det(R) < 0:  # proper rotation
+        R = -R
+        K = -K  # keep K @ R = M; sign absorbed by normalization below
+    # Camera center: null space of P.
+    c = -np.linalg.inv(M) @ P[:, 3]
+    K = K / K[2, 2]
+    intrinsics = np.eye(4)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4, dtype=np.float64)
+    pose[:3, :3] = R.T  # world-from-camera rotation
+    pose[:3, 3] = c
+    return intrinsics.astype(np.float32), pose.astype(np.float32)
 
 
 def lift(x, y, z, intrinsics):

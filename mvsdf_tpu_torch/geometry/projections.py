@@ -66,6 +66,19 @@ def pixel_grid(height: int, width: int, device=None):
     return torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
 
 
+def scale_camera(cam, scale):
+    """Scale the intrinsics of an MVS camera (..., 2, 4, 4), numpy or torch,
+    by a factor or (sx, sy); returns a new array. Ref ``my_utils.py:32-61``.
+    """
+    if not isinstance(scale, (tuple, list)):
+        scale = (scale, scale)
+    new = cam.copy() if hasattr(cam, "copy") else cam.clone()
+    for idx, s in (((1, 0, 0), scale[0]), ((1, 1, 1), scale[1]),
+                   ((1, 0, 2), scale[0]), ((1, 1, 2), scale[1])):
+        new[(Ellipsis,) + idx] = cam[(Ellipsis,) + idx] * s
+    return new
+
+
 def normalize_pixel_coords(xy, height: int, width: int):
     """Pixel coords (..., 2) -> normalized [-1, 1] coords clamped to
     [-1.1, 1.1]."""

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..compaction import compact_call_into
@@ -440,3 +441,187 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
         [flat(points), flat(dists)], out_masks=[fillf, fillf])
     return TraceResult(p_f.reshape(lead + (3,)), net_obj_mask,
                        d_f.reshape(lead), sampler_mask, mask_intersect)
+
+
+# ---------------------------------------------------------------------------
+# Capacity helpers of the JAX package's compaction. The port gathers exactly
+# the active rays, so the capacities they choose do not change results; the
+# training CLI computes, prints and carries them as the JAX package does.
+# ---------------------------------------------------------------------------
+
+def auto_fallback_capacity(object_frac: float, sampler_margin: float = 0.30,
+                           granularity: float = 1 / 16,
+                           intersect_frac: Optional[float] = None,
+                           fill_misses: bool = True) -> float:
+    """Scene-aware capacity for the unified fallback stage.
+
+    The fallback's active set is (march-unfinished rays) ∪ (every
+    out-of-object-mask ray that intersects the bounding sphere) — the
+    reference evaluates exactly this set by boolean indexing
+    (ref ray_tracing.py:44-94). The out-of-mask part is STATIC per scene
+    (1 - object_frac of rays, nearly all of which hit the bounding
+    sphere), so a fixed capacity below it guarantees the dense overflow
+    branch every step: the round-2 capstone scene (object_frac 0.38) ran
+    active=0.84 against capacity 0.5 and paid dense 100-sample evals on
+    all rays. Size the capacity as out-of-mask + a march-unfinished
+    margin, rounded up for shape stability; >= 0.9 collapses to 1.0
+    (pure dense, no gather — a near-full gather costs more than it saves).
+
+    EVERY fallback ray additionally intersects the bounding sphere
+    (both the sampler and fill sets require mask_intersect; left_out rays
+    take the origin-projection branch instead, ref :79-84), so the
+    scene's sphere-intersect fraction — pure camera geometry, no SDF —
+    is a hard upper bound on the active set. Pass ``intersect_frac``
+    (mean over sampled pixels of ray/bounding-sphere intersection) to
+    apply it: on wide-FoV scenes where much of the frame misses the
+    sphere it is far tighter than the mask bound (bench fixture: 0.33
+    intersect vs all-ones masks).
+
+    object_frac: mean of the scene's object masks over all images/pixels.
+    fill_misses: False = the trace skips the min-SDF fill (see
+    TracerConfig.fill_misses), so the active set is ONLY the
+    march-unfinished sampler rays — the static out-of-mask term vanishes
+    and the capacity is the sampler margin under the intersect bound.
+    """
+    if not fill_misses:
+        frac = sampler_margin
+        if intersect_frac is not None:
+            frac = min(frac, intersect_frac + granularity)
+    elif intersect_frac is not None:
+        # the hard bound: active ⊆ intersecting rays, +granularity slack
+        frac = intersect_frac + granularity
+    else:
+        frac = (1.0 - object_frac) + sampler_margin
+    frac = np.ceil(frac / granularity) * granularity
+    if frac >= 0.9:
+        return 1.0
+    return float(max(frac, granularity))
+
+
+def auto_fallback_cascade(object_frac: float, sampler_margin: float = 0.30,
+                          granularity: float = 1 / 16,
+                          intersect_frac: Optional[float] = None,
+                          fill_misses: bool = True):
+    """Capacity cascade for the unified fallback.
+
+    Top tier: the guaranteed static bound (sphere-intersect fraction when
+    known, else the mask heuristic). Lower tiers (the mask heuristic, or
+    half the top) engage automatically once training shrinks the miss set
+    (the surface forms, fill rays become hits). Exact at every tier —
+    overflow falls through to the next tier / dense.
+
+    fill_misses=False (the fill-skipping trace, TracerConfig.fill_misses):
+    the active set is only the march-unfinished rays — tiers are fractions
+    of the sampler margin under the intersect bound, plus the intersect
+    bound itself as the overflow tier (dense beyond it is impossible in
+    exact arithmetic but kept as the cascade's safety property).
+    """
+    top = auto_fallback_capacity(object_frac, sampler_margin, granularity,
+                                 intersect_frac, fill_misses=fill_misses)
+    if top >= 1.0:
+        return (1.0,)
+    tiers = {top}
+    if not fill_misses:
+        half = float(max(np.ceil(top / 2 / granularity) * granularity,
+                         2 * granularity))
+        if half < top:
+            tiers.add(half)
+        if intersect_frac is not None:
+            over = auto_fallback_capacity(object_frac, sampler_margin,
+                                          granularity, intersect_frac)
+            if 1.0 > over > top:
+                tiers.add(over)
+        return tuple(sorted(tiers))
+    if intersect_frac is not None:
+        mask_tier = auto_fallback_capacity(object_frac, sampler_margin,
+                                           granularity)
+        if mask_tier < top:
+            tiers.add(mask_tier)
+    if len(tiers) == 1:
+        half = float(max(np.ceil(top / 2 / granularity) * granularity,
+                         2 * granularity))
+        if half < top:
+            tiers.add(half)
+    return tuple(sorted(tiers))
+
+
+def auto_supervised_cascade(intersect_frac: Optional[float] = None,
+                            granularity: float = 1 / 16):
+    """Capacity ladder for the supervised-path compaction
+    (ModelConfig.supervised_compact_frac). The compacted set is the
+    surface-hit lanes, bounded above by the sphere-intersect fraction (a
+    non-intersecting ray can never be a hit), so a tier at that bound can
+    never overflow. As in the JAX package: one tier at the bound, and ()
+    when the bound is 0.5 or more (gathering most rows costs more than it
+    saves there)."""
+    if intersect_frac is None:
+        return ()
+    bound = float(np.ceil(intersect_frac / granularity) * granularity)
+    if bound >= 0.5:
+        return ()
+    return (max(bound, 2 * granularity),)
+
+
+def ray_intersect_fraction(uv, intrinsics, pose, radius: float = 1.0,
+                           max_rays: int = 200_000) -> float:
+    """Fraction of pixel rays that intersect the bounding sphere — the
+    hard geometric bound on the fallback active set. Host-side over a pixel
+    subsample (every ``B * P // max_rays``-th pixel of each image, taken
+    before anything is copied, so a broadcast ``uv`` costs nothing); f32 on
+    the CPU, as the JAX package computes it.
+
+    uv (B, P, 2) pixel coords, intrinsics (B, 4, 4), pose (B, 4, 4).
+    """
+    from ..geometry.cameras import get_camera_params
+    uv = np.asarray(uv)
+    B, P, _ = uv.shape
+    stride = max(1, (B * P) // max_rays)
+    uv = torch.from_numpy(np.ascontiguousarray(uv[:, ::stride], np.float32))
+    dirs, org = get_camera_params(
+        uv, torch.from_numpy(np.asarray(pose, np.float32)),
+        torch.from_numpy(np.asarray(intrinsics, np.float32)))
+    dirs, org = dirs.numpy(), org.numpy()
+    org = np.broadcast_to(org[:, None, :], dirs.shape)
+    d_dot_o = np.sum(dirs * org, -1)
+    under = d_dot_o ** 2 - (np.sum(org ** 2, -1) - radius ** 2)
+    return float(np.mean(under > 0))
+
+
+def auto_march_schedule(object_frac: float, granularity: float = 1 / 16,
+                        intersect_frac: Optional[float] = None):
+    """Scene-aware mid-march compaction schedule.
+
+    Object rays converge within ~2 iterations; background (out-of-mask)
+    rays march until their start/end fronts cross, so the late-iteration
+    active fraction tracks the background fraction (the JAX package's
+    measured decay, scripts/march_decay.py). Each segment gets a tight
+    tier from that decay plus a looser overflow tier from the
+    early-training bound.
+
+    Marching rays all intersect the bounding sphere, so ``intersect_frac``
+    (see auto_fallback_capacity) additionally caps every segment — on
+    wide-FoV scenes it also enables an iteration-0 segment (the march
+    starts with exactly the intersecting rays active).
+    """
+    bg = 1.0 - object_frac
+
+    def cap(x):
+        if intersect_frac is not None:
+            x = min(x, intersect_frac + granularity)
+        x = np.ceil(x / granularity) * granularity
+        return float(np.clip(x, 2 * granularity, 1.0))
+
+    # tight tier: 0.95, 0.8, 0.62 of the background after iterations 1,
+    # 4, 7; over tier from the loose early-training bound
+    sched = [(1, 0.95 * bg + 0.03, bg + 0.25),
+             (5, 0.80 * bg + 0.03, bg + 0.05),
+             (8, 0.62 * bg + 0.03, 0.75 * bg + 0.05)]
+    if intersect_frac is not None and cap(1.0) < 0.95:
+        sched.insert(0, (0, 1.0, 2.0))
+    out = []
+    for s, tight, over in sched:
+        tight, over = cap(tight), cap(over)
+        if tight < 0.95 and (not out or tight < out[-1][1][0]):
+            out.append((s, (tight, over) if over > tight and over < 0.95
+                        else (tight,)))
+    return tuple(out)

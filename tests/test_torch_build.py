@@ -11,8 +11,8 @@ def test_library_path_follows_every_file_under_csrc(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     names = sorted(p.name for p in csrc.iterdir())
-    assert names == ["march.cu", "mlp_tile_tc.cuh", "sdf_mlp.cu",
-                     "secant.cu"]
+    assert names == ["march.cu", "mlp_tile_tc.cuh", "png_unfilter.cu",
+                     "sdf_mlp.cu", "secant.cu"]
     out = str(tmp_path / "_build")
     seen = {build.library_path(str(csrc), out)}
     assert build.library_path(str(csrc), out) in seen  # stable

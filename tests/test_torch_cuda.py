@@ -5,6 +5,8 @@ installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -219,3 +221,76 @@ def test_sphere_march_with_no_ray_to_march(cuda):
     none = M.sphere_march(tcfg, packed, 6, *(a[:0] for a in away))
     assert M.sphere_march.launches == before
     assert all(a.shape == (0,) for a in none)
+
+
+@pytest.mark.cuda
+def test_png_native_unfilter_matches_plain_version(cuda):
+    """The host C function that undoes PNG row filters (built with the
+    kernels) against its numpy plain version: every filter, 1-8 bytes a
+    pixel; a filter type that does not exist raises."""
+    from mvsdf_tpu_torch.data import png
+    rng = np.random.default_rng(0)
+    for bpp, w in ((1, 37), (2, 17), (3, 29), (4, 13), (6, 11), (8, 5)):
+        raw = rng.integers(0, 256, (23, w * bpp)).astype(np.uint8)
+        for ft in (0, 1, 2, 3, 4, None):
+            rows = png.filter_rows(raw, bpp, ft)
+            got = png.unfilter(rows, bpp, native=True)
+            assert np.array_equal(got, png.unfilter_reference(rows, bpp))
+            assert np.array_equal(got, raw)
+    rows[5, 0] = 7
+    with pytest.raises(ValueError, match="filter 7"):
+        png.unfilter(rows, 8, native=True)
+
+
+CLI_CONF = """
+train{ plot_freq = 1/2 }
+model{
+    feature_vector_size = 16
+    implicit_network {
+        dims = [64, 64, 64, 64]
+        skip_in = [2]
+        bias = 0.6
+    }
+    rendering_network { dims = [64, 64] }
+}
+"""
+
+
+@pytest.mark.cuda
+def test_training_cli_on_the_card(cuda, tmp_path, monkeypatch):
+    """The training CLI on a 3-view on-disk scene, epochs 0..4 (phases A,
+    B, C, C, C) through --pallas on the card: finite losses, the SDF-MLP
+    kernel launched in every epoch, checkpoints and meshes."""
+    import json
+    from mvsdf_tpu_torch.data.synthetic import write_scene_dir
+    from mvsdf_tpu_torch.train import cli
+    data = write_scene_dir(str(tmp_path), n_images=3, img_hw=(48, 64),
+                           depth_hw=(24, 32))
+    conf = tmp_path / "small.conf"
+    conf.write_text(CLI_CONF)
+    launches = []
+    from mvsdf_tpu_torch.train import loop
+    train_epoch = loop.Trainer.train_epoch
+
+    def counted(self, epoch):
+        before = K.sdf_mlp.launches
+        out = train_epoch(self, epoch)
+        launches.append(K.sdf_mlp.launches - before)
+        return out
+
+    monkeypatch.setattr(loop.Trainer, "train_epoch", counted)
+    trainer = cli.main(["--data_dir", data, "--pallas",
+                        "--allow_random_features", "--conf", str(conf),
+                        "--batch_size", "3", "--nepoch", "4",
+                        "--num_pixels", "256", "--exps_folder",
+                        str(tmp_path / "exps")])
+    assert trainer.device.type == "cuda"
+    rows = [json.loads(line) for line in
+            open(os.path.join(trainer.exp_dir, "metrics.jsonl"))]
+    assert [r["phase"] for r in rows] == [0, 1, 2, 2, 2]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert len(launches) == 5 and min(launches) > 0, launches
+    assert open(os.path.join(trainer.ckpt_dir, "latest.txt")).read() == "4"
+    for e in (2, 4):
+        assert os.path.exists(os.path.join(trainer.plots_dir,
+                                           f"surface_{e}.obj"))

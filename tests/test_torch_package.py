@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points refuse to fall back to the CPU silently, and its
-parameter conversion and synthetic scene match the JAX package's."""
+package nor an image library (the GPU machine it targets has none), its
+entry points refuse to fall back to the CPU silently, and its parameter
+conversion and synthetic scene match the JAX package's."""
 import ast
 import os
 import subprocess
@@ -21,6 +22,8 @@ from mvsdf_tpu_torch.train.step import init_params, init_train_state
 from tests.golden.scene_fixtures import make_scene as golden_make_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+IMAGE_LIBRARIES = ("imageio", "cv2", "PIL", "matplotlib", "mpl_toolkits",
+                   "orbax", "skimage")
 PORT = os.path.join(REPO, "mvsdf_tpu_torch")
 
 
@@ -51,13 +54,20 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
                 (path, mod)
 
 
+def test_no_file_of_the_port_imports_an_image_library():
+    files = list(_port_files())
+    for path in files:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in IMAGE_LIBRARIES, (path, mod)
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib, pkgutil, mvsdf_tpu_torch\n"
             "for m in pkgutil.walk_packages(mvsdf_tpu_torch.__path__, "
             "'mvsdf_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'mvsdf_tpu')]\n"
+            f"{('jax', 'mvsdf_tpu') + IMAGE_LIBRARIES!r}]\n"
             "print(len([m for m in sys.modules if m.startswith("
             "'mvsdf_tpu_torch.')]), bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
