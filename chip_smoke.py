@@ -2,8 +2,8 @@
 holds each against its plain PyTorch version, drives the two trace
 configurations of the main path (phase-B training steps of the full-size
 model at the bench shapes, then an eval render) through them, trains a
-DTU-sized scene directory end to end through the training CLI, and prints
-what it measured.
+DTU-sized scene directory end to end through the training CLI, evaluates
+the checkpoint through the eval CLI, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -12,9 +12,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. kernel       each kernel against its plain version at the main path's
                   widths (tolerances stated below), with timings and bounds;
                   the two SDF-MLP kernels (bf16 tensor-core passes on split
-                  operands) are gated by the f32 plain version; their
-                  distance from the plain version of the split arithmetic
-                  is printed, and their times at 64 to 65,537 rows; the
+                  operands) are gated by the f32 plain version and, more
+                  tightly, by the plain version of the split arithmetic
+                  with the tensor cores' sums; their distance from it with
+                  f32 sums is printed, and their times at 64 to 65,537
+                  rows; the
                   secant and the march, which loop over the same tile, are
                   gated by their f32 plain versions and, more tightly, by
                   the trace's host-driven loops through sdf_mlp_xyz (the
@@ -41,7 +43,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   numpy version; then resumes from epoch 3: the restored
                   state must equal the saved one exactly, and epochs 4-6
                   must repeat the first run's losses within RESUME_RTOL
-Every kernel count is set to 0 just before each of phases 3-7 and read just
+  8. eval         evaluates phase 7's epoch-6 checkpoint through the eval
+                  CLI in this process (--pallas --resolution 512
+                  --eval_rendering) on a second scene directory at the same
+                  sizes with 8 views of 49 (the cut: the checkpoint does not
+                  depend on the views); gates its files, a finite PSNR, the
+                  sdf_mlp launches (and no other kernel's); holds the
+                  kernel's 512^3 grid to the plain field's (TOL) and the
+                  native triangulator to the numpy one on a 128^3 grid;
+                  times one of the grid's 2,097,152-row sdf_mlp launches
+                  beside its plain version and the library chain; prints
+                  the mesh's distance to the scene's sphere of radius 0.5
+                  from the kernel's 512^3 grid and from the plain field's
+Every kernel count is set to 0 just before each of phases 3-8 and read just
 after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
@@ -60,6 +74,11 @@ import time
 B, P = 8, 4096                 # the bench shapes: 8 images x 4096 rays
 N_KERNEL = 65537               # ragged row count for the SDF-MLP checks
 TOL = 1e-4                     # max |kernel - plain| on |sdf| <~ 1, f32
+# the SDF-MLP kernels against the plain version of their split arithmetic
+# with the tensor cores' sums (sdf_mlp.tc_k_step) on the first MODEL_ROWS
+# rows: 4.8e-6 measured on an H100 (this script's own line), from the
+# epilogue's f32 roundings and the SDF column's order of sums
+MODEL_ROWS, MODEL_TOL = 4096, 1e-5
 # one tile, the path's mean launch, one row more than fills the card's 132
 # SMs with 64-row tiles, the check
 SIZES = (64, 4096, 8449, N_KERNEL)
@@ -84,6 +103,13 @@ CLI_EPOCHS = 6
 CLI_ARGS = ("--pallas", "--allow_random_features", "--nepoch",
             str(CLI_EPOCHS), "--batch_size", str(B), "--num_pixels", str(P))
 RESUME_FROM = 3
+# the eval phase: views rendered of CLI_VIEWS, the CLI's grid, the grid of
+# the kernel / plain and native / numpy checks, the scene's sphere
+EVAL_VIEWS = 8
+EVAL_RES = 512
+EVAL_ARGS = ("--pallas", "--resolution", str(EVAL_RES), "--eval_rendering")
+CHECK_RES = 128
+SPHERE_R = 0.5
 # resumed epochs' losses against the first run's, relative: the card's
 # gradient scatters use atomics, so the two runs part by rounding (5.6e-5
 # measured on an H100 at this size)
@@ -190,9 +216,10 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes,
 def check_sdf_mlps(net, packed, x, pe, weight_bytes):
     """sdf_mlp on pe and sdf_mlp_xyz on x, each through its wrapper (the
     counts are zeroed before the main path) against the f32 plain version
-    (the gate); the distance from the plain version of the split arithmetic
-    is printed (the tensor cores' own accumulation is not modelled there).
-    Returns the kernels' entries and the time of a one-tile launch."""
+    (TOL) and, on MODEL_ROWS rows, the split arithmetic with the tensor
+    cores' sums (MODEL_TOL); the distance from the split arithmetic with f32
+    sums is printed. Returns the kernels' entries and the time of a
+    one-tile launch."""
     import torch
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
     L = net.cfg.multires
@@ -204,11 +231,13 @@ def check_sdf_mlps(net, packed, x, pe, weight_bytes):
         f"{N_KERNEL} rows")
     ref = K.sdf_mlp_reference(packed, pe)
     split = K.sdf_mlp_split_reference(packed, pe)
-    one = K.mlp_chain(
-        packed, pe, lambda a, w: a.bfloat16().float() @ w.bfloat16().float())
+    one = K.mlp_chain(packed, pe, lambda a, w, acc: (
+        0 if acc is None else acc) + a.bfloat16().float() @ w.bfloat16(
+        ).float())
     log(f"[kernel] plain versions on the card, N={N_KERNEL}: max|split - "
         f"f32| = {(split - ref).abs().max().item():.3e}, max|one bf16 pass "
         f"- f32| = {(one - ref).abs().max().item():.3e}")
+    tc = K.sdf_mlp_split_reference(packed, pe[:MODEL_ROWS], "tensor_core")
     library_ms = cuda_ms(lambda: library_chain(net, x))
     out = []
     for name, fn, ref_fn, inp, replaces in (
@@ -230,9 +259,16 @@ def check_sdf_mlps(net, packed, x, pe, weight_bytes):
             f"{(split - ref).mean():.3e}, mean|.| "
             f"{(split - ref).abs().mean():.3e}; max|sdf| = "
             f"{ref.abs().max().item():.3f}")
-        if not (err <= TOL and torch.isfinite(got).all()):
+        d_tc = got[:MODEL_ROWS] - tc
+        tc_err = d_tc.abs().max().item()
+        log(f"[kernel] {name} against the split arithmetic with the tensor "
+            f"cores' sums on {MODEL_ROWS} rows: max|.| = {tc_err:.3e} "
+            f"(tolerance {MODEL_TOL:g}), mean {d_tc.mean():.3e}, mean|.| "
+            f"{d_tc.abs().mean():.3e}")
+        if not (err <= TOL and tc_err <= MODEL_TOL and
+                torch.isfinite(got).all()):
             raise AssertionError(f"{name} disagrees with its plain version:"
-                                 f" {err}")
+                                 f" {err}, {tc_err}")
         nbytes = 4 * (inp.numel() + N_KERNEL) + weight_bytes
         out.append(kernel_entry(name, "sdf_mlp.cu", replaces, err,
                                 cuda_ms(fn), cuda_ms(ref_fn), flops, nbytes,
@@ -700,81 +736,267 @@ def phase_times(rows, n_rays):
     return out
 
 
-def cli_phase():
-    """Phase 7: the training CLI on a DTU-sized scene directory, then its
-    resume."""
-    import numpy as np
+def cli_phase(tmp):
+    """Phase 7: the training CLI on a DTU-sized scene directory under
+    ``tmp``, then its resume. Returns the experiments folder."""
     import torch
     from mvsdf_tpu_torch.data.synthetic import write_scene_dir
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
-        t0 = time.perf_counter()
-        data_dir = write_scene_dir(tmp, n_images=CLI_VIEWS, img_hw=CLI_IMG,
-                                   depth_hw=CLI_DEPTH)
-        log(f"[cli] wrote a {CLI_VIEWS}-view scene directory, images "
-            f"{CLI_IMG[1]}x{CLI_IMG[0]}, depth maps {CLI_DEPTH[1]}x"
-            f"{CLI_DEPTH[0]}: {time.perf_counter() - t0:.2f} s")
-        check_png_unfilter(data_dir)
-        argv = ["--data_dir", data_dir, "--exps_folder",
-                os.path.join(tmp, "exps"), "--expname", "smoke", *CLI_ARGS]
-        tee = Tee(sys.stdout)
-        launches = []
-        zero_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            trainer = train_cli(argv, launches)
-        wall = time.perf_counter() - t0
-        total = counts()
-        rows = metric_rows(trainer)
-        check_cli_run(trainer, rows, launches, "".join(tee.text))
-        sc = trainer.scene
-        log(f"[cli] run 1: {wall:.1f} s in the CLI; scene load "
-            f"{sc.timings['load_s']:.2f} s, of which "
-            f"{sc.timings['png_decode_s']:.2f} s to decode "
-            f"{sc.timings['png_files']} PNGs = "
-            f"{sc.timings['png_decode_s'] / sc.timings['png_files'] * 1e3:.1f}"
-            f" ms each; FeatExt on {sc.n_images} views "
-            f"{sc.timings['featext_s'] * 1e3:.1f} ms (features "
-            f"{tuple(sc.feats.shape)}); device scene cache "
-            f"{trainer.cache.nbytes()} bytes")
-        for name, (ms, rays, each) in phase_times(rows, B * P).items():
-            log(f"[cli] phase {name}: {ms:.1f} ms/step, {rays:.1f} rays/s "
-                f"(epochs' ms/step after their first step "
-                f"{[round(x, 1) for x in each]})")
-        t = trainer.timings
-        log(f"[cli] checkpoint save ms {[round(x, 1) for x in t['save_ms']]}"
-            f"; mesh snapshot ms {[round(x, 1) for x in t['mesh_ms']]}; full "
-            f"render of {CLI_IMG[0] * CLI_IMG[1]} rays "
-            f"{[round(x, 2) for x in t['render_s']]} s; sdf_mlp launches "
-            f"{total['sdf_mlp']}")
+    t0 = time.perf_counter()
+    data_dir = write_scene_dir(tmp, n_images=CLI_VIEWS, img_hw=CLI_IMG,
+                               depth_hw=CLI_DEPTH)
+    log(f"[cli] wrote a {CLI_VIEWS}-view scene directory, images "
+        f"{CLI_IMG[1]}x{CLI_IMG[0]}, depth maps {CLI_DEPTH[1]}x"
+        f"{CLI_DEPTH[0]}: {time.perf_counter() - t0:.2f} s")
+    check_png_unfilter(data_dir)
+    argv = ["--data_dir", data_dir, "--exps_folder",
+            os.path.join(tmp, "exps"), "--expname", "smoke", *CLI_ARGS]
+    tee = Tee(sys.stdout)
+    launches = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        trainer = train_cli(argv, launches)
+    wall = time.perf_counter() - t0
+    total = counts()
+    rows = metric_rows(trainer)
+    check_cli_run(trainer, rows, launches, "".join(tee.text))
+    sc = trainer.scene
+    log(f"[cli] run 1: {wall:.1f} s in the CLI; scene load "
+        f"{sc.timings['load_s']:.2f} s, of which "
+        f"{sc.timings['png_decode_s']:.2f} s to decode "
+        f"{sc.timings['png_files']} PNGs = "
+        f"{sc.timings['png_decode_s'] / sc.timings['png_files'] * 1e3:.1f}"
+        f" ms each; FeatExt on {sc.n_images} views "
+        f"{sc.timings['featext_s'] * 1e3:.1f} ms (features "
+        f"{tuple(sc.feats.shape)}); device scene cache "
+        f"{trainer.cache.nbytes()} bytes")
+    for name, (ms, rays, each) in phase_times(rows, B * P).items():
+        log(f"[cli] phase {name}: {ms:.1f} ms/step, {rays:.1f} rays/s "
+            f"(epochs' ms/step after their first step "
+            f"{[round(x, 1) for x in each]})")
+    t = trainer.timings
+    log(f"[cli] checkpoint save ms {[round(x, 1) for x in t['save_ms']]}"
+        f"; mesh snapshot ms {[round(x, 1) for x in t['mesh_ms']]}; full "
+        f"render of {CLI_IMG[0] * CLI_IMG[1]} rays "
+        f"{[round(x, 2) for x in t['render_s']]} s; sdf_mlp launches "
+        f"{total['sdf_mlp']}")
 
-        # resume from epoch 3 into the same experiment
-        resumed = []
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            trainer2 = train_cli(argv + ["--is_continue", "--checkpoint",
-                                         str(RESUME_FROM)], resumed)
-        rows2 = metric_rows(trainer2)[len(rows):]
-        if [r["step"] for r in rows2] != list(range(RESUME_FROM + 1,
-                                                    CLI_EPOCHS + 1)):
-            raise AssertionError(f"resumed rows {[r['step'] for r in rows2]}")
-        worst = 0.0
-        for a, b in zip(rows[RESUME_FROM + 1:], rows2):
-            for k in LOSSES:
-                d = abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
-                worst = max(worst, d)
-        log(f"[cli] resumed: {time.perf_counter() - t0:.1f} s, restore "
-            f"{trainer2.timings['restore_ms'][0]:.1f} ms; epochs "
-            f"{[r['step'] for r in rows2]} losses "
-            f"{[round(r['loss'], 6) for r in rows2]} against "
-            f"{[round(r['loss'], 6) for r in rows[RESUME_FROM + 1:]]}: worst "
-            f"relative difference of a loss term {worst:.3e} (tolerance "
-            f"{RESUME_RTOL:g}); sdf_mlp launches by epoch "
-            f"{[e['sdf_mlp'] for e in resumed]}")
-        if worst > RESUME_RTOL or "plot failed" in "".join(tee.text):
-            raise AssertionError("the resumed run does not repeat the first")
-        log(f"[cli] peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # resume from epoch 3 into the same experiment
+    resumed = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        trainer2 = train_cli(argv + ["--is_continue", "--checkpoint",
+                                     str(RESUME_FROM)], resumed)
+    rows2 = metric_rows(trainer2)[len(rows):]
+    if [r["step"] for r in rows2] != list(range(RESUME_FROM + 1,
+                                                CLI_EPOCHS + 1)):
+        raise AssertionError(f"resumed rows {[r['step'] for r in rows2]}")
+    worst = 0.0
+    for a, b in zip(rows[RESUME_FROM + 1:], rows2):
+        for k in LOSSES:
+            d = abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+            worst = max(worst, d)
+    log(f"[cli] resumed: {time.perf_counter() - t0:.1f} s, restore "
+        f"{trainer2.timings['restore_ms'][0]:.1f} ms; epochs "
+        f"{[r['step'] for r in rows2]} losses "
+        f"{[round(r['loss'], 6) for r in rows2]} against "
+        f"{[round(r['loss'], 6) for r in rows[RESUME_FROM + 1:]]}: worst "
+        f"relative difference of a loss term {worst:.3e} (tolerance "
+        f"{RESUME_RTOL:g}); sdf_mlp launches by epoch "
+        f"{[e['sdf_mlp'] for e in resumed]}")
+    if worst > RESUME_RTOL or "plot failed" in "".join(tee.text):
+        raise AssertionError("the resumed run does not repeat the first")
+    log(f"[cli] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return os.path.join(tmp, "exps")
+
+
+def sphere_distance(verts):
+    """(mean, max) of | |v| - SPHERE_R | over a mesh's vertices: the
+    trained surface's distance to the scene's sphere (the scene's scale
+    matrix is the identity, so world and unit frame agree)."""
+    import numpy as np
+    d = np.abs(np.linalg.norm(verts.astype(np.float64), axis=1) - SPHERE_R)
+    return float(d.mean()), float(d.max())
+
+
+def oriented_faces(faces):
+    """Each face rotated to start at its least vertex (keeping its
+    orientation), the faces sorted: the faces as a set."""
+    import numpy as np
+    k = np.argmin(faces, 1)[:, None]
+    rolled = np.take_along_axis(faces, (k + np.arange(3)) % 3, 1)
+    return rolled[np.lexsort(rolled.T[::-1])]
+
+
+def check_triangulator(net, dev):
+    """The native triangulator against the numpy one on the kernel's grid
+    at CHECK_RES^3: equal vertices to the bit, equal faces."""
+    import numpy as np
+    from mvsdf_tpu_torch.eval.cli import grid_sdf_fn
+    from mvsdf_tpu_torch.eval.marching import (eval_sdf_grid,
+                                               marching_tetrahedra)
+    vol = eval_sdf_grid(grid_sdf_fn(net, True), CHECK_RES, device=dev)
+    step = 2.0 / (CHECK_RES - 1)
+    kw = dict(spacing=(step,) * 3, origin=(-1.0,) * 3)
+    t0 = time.perf_counter()
+    nv, nf = marching_tetrahedra(vol, 0.0, native=True, **kw)
+    t1 = time.perf_counter()
+    pv, pf = marching_tetrahedra(vol, 0.0, **kw)
+    t2 = time.perf_counter()
+    same_v = np.array_equal(nv, pv)
+    same_f = nf.shape == pf.shape and np.array_equal(oriented_faces(nf),
+                                                     oriented_faces(pf))
+    log(f"[eval] {CHECK_RES}^3 triangulation: native {t1 - t0:.3f} s, "
+        f"numpy {t2 - t1:.3f} s; {len(nv)} vertices "
+        f"{'equal to the bit' if same_v else 'DIFFERENT'}, {len(nf)} faces "
+        f"{'equal' if same_f else 'DIFFERENT'}")
+    if not (same_v and same_f and len(nf)):
+        raise AssertionError("the native triangulator disagrees with the "
+                             "numpy one")
+
+
+def time_grid_launch(net, dev):
+    """Device times of one of the grid's sdf_mlp launches (the first slab
+    of eval_sdf_grid's 8 x-planes at EVAL_RES^2 points), of its plain
+    version and of the library chain, on the same inputs; returns the
+    kernel's ms."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.fields.embedder import positional_encoding
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    icfg = net.implicit.cfg
+    xs = torch.from_numpy(np.linspace(-1.0, 1.0, EVAL_RES,
+                                      dtype=np.float32)).to(dev)
+    x = torch.stack(torch.meshgrid(xs[:8], xs, xs, indexing="ij"),
+                    -1).reshape(-1, 3)
+    with torch.no_grad():
+        packed = K.pack_sdf_weights(net.implicit)
+        pe = positional_encoding(x, icfg.multires).contiguous()
+        ms = cuda_ms(lambda: K.sdf_mlp(packed, pe), iters=5)
+        plain_ms = cuda_ms(lambda: K.sdf_mlp_reference(packed, pe), iters=2)
+        library_ms = cuda_ms(lambda: library_chain(net.implicit, x), iters=2)
+    rows = x.shape[0]
+    nbytes = 4 * (pe.numel() + rows) + 2 * packed.w_tc.numel() + \
+        4 * (packed.v_tc.numel() + 1)
+    bound_ms, by = bound(K.flops_per_point(icfg) * rows, nbytes, PEAK_BF16)
+    log(f"[eval] one grid launch of {rows} rows: sdf_mlp {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, library {library_ms:.3f} ms; bound "
+        f"{bound_ms:.3f} ms by {by}, {ms / bound_ms:.2f} x the bound")
+    return ms
+
+
+def eval_phase(tmp, exps, dev):
+    """Phase 8: the eval CLI on phase 7's last checkpoint, on a second
+    scene directory of EVAL_VIEWS views under ``tmp``."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.config import MVSDFConfig
+    from mvsdf_tpu_torch.data.synthetic import write_scene_dir
+    from mvsdf_tpu_torch.eval import cli as eval_cli
+    from mvsdf_tpu_torch.eval import marching
+    from mvsdf_tpu_torch.eval.mesh import biggest_component
+    from mvsdf_tpu_torch.fields.network import MVSDFNetwork
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.train import checkpoints as ckpt
+    t0 = time.perf_counter()
+    data_dir = write_scene_dir(os.path.join(tmp, "eval"),
+                               n_images=EVAL_VIEWS, img_hw=CLI_IMG,
+                               depth_hw=CLI_DEPTH)
+    log(f"[eval] views {EVAL_VIEWS} of {CLI_VIEWS}: wrote a second scene "
+        f"directory at the same sizes in {time.perf_counter() - t0:.2f} s")
+    evals = os.path.join(tmp, "evals")
+    argv = ["--data_dir", data_dir, "--exps_folder", exps, "--expname",
+            "smoke", "--evals_folder", evals, *EVAL_ARGS]
+    grid_launches = []
+    eval_sdf_grid = marching.eval_sdf_grid
+
+    def counted_grid(*a, **kw):
+        before = K.sdf_mlp.launches
+        out = eval_sdf_grid(*a, **kw)
+        grid_launches.append(K.sdf_mlp.launches - before)
+        return out
+
+    marching.eval_sdf_grid = counted_grid
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        result = eval_cli.main(argv)
+    finally:
+        marching.eval_sdf_grid = eval_sdf_grid
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    evaldir = os.path.join(evals, "smoke")
+    e = result.epoch
+    want = [f"surface_world_coordinates_{e}.obj", f"scene_{e}.html",
+            "psnr.txt"] + [os.path.join("rendering", f"eval_{i:03d}.png")
+                           for i in range(EVAL_VIEWS)]
+    missing = [f for f in want if not os.path.isfile(os.path.join(evaldir,
+                                                                  f))]
+    psnrs = np.asarray(result.psnrs)
+    t = result.timings
+    rows = EVAL_RES ** 3
+    flops = K.flops_per_point(MVSDFConfig().model.implicit) * rows
+    grid_bound = flops / PEAK_BF16
+    log(f"[eval] the eval CLI: {wall:.1f} s; epoch {e}; grid {EVAL_RES}^3 "
+        f"= {rows} rows through sdf_mlp in {grid_launches} launches: "
+        f"{t['grid_s']:.3f} s (bound {grid_bound:.3f} s at the bf16 "
+        f"tensor-core peak, {t['grid_s'] / grid_bound:.2f} x); "
+        f"triangulation {t['triangulate_s']:.3f} s; mesh "
+        f"{len(result.verts)} vertices {len(result.faces)} faces; render "
+        f"{np.mean(t['render_s']):.2f} s a view "
+        f"{[round(x, 2) for x in t['render_s']]}; PSNR mean "
+        f"{psnrs.mean():.4f} std {psnrs.std():.4f}; launches {launches}; "
+        f"peak memory {peak:.2f} GiB")
+    if missing or len(psnrs) != EVAL_VIEWS or not np.isfinite(psnrs).all():
+        raise AssertionError(f"eval outputs: missing {missing}, PSNRs "
+                             f"{psnrs}")
+    if e != CLI_EPOCHS or launches["sdf_mlp"] == 0 or any(
+            launches[k] for k in ("sdf_mlp_xyz", "secant", "sphere_march")):
+        raise AssertionError(f"eval of epoch {e}, launches {launches}")
+
+    # the same checkpoint through the plain field: its grid against the
+    # kernel's, the triangulator, one grid launch's times, the surface
+    stamp = sorted(os.listdir(os.path.join(exps, "smoke")))[-1]
+    tree, _ = ckpt.load_checkpoint(
+        os.path.join(exps, "smoke", stamp, "checkpoints"), None,
+        map_location=dev)
+    model = MVSDFConfig().model
+    net = MVSDFNetwork(model.implicit, model.render).to(dev)
+    net.load_state_dict(tree["net"])
+    t0 = time.perf_counter()
+    vol = marching.eval_sdf_grid(eval_cli.grid_sdf_fn(net, False), EVAL_RES,
+                                 device=dev)
+    plain_s = time.perf_counter() - t0
+    d = result.grid - vol
+    err = float(np.abs(d).max())
+    log(f"[eval] {EVAL_RES}^3 grid through sdf_mlp against the plain "
+        f"field's ({plain_s:.3f} s): max|d sdf| = {err:.3e} (tolerance "
+        f"{TOL:g}), mean signed {d.mean():.3e}, "
+        f"{int((np.sign(result.grid) != np.sign(vol)).sum())} signs differ")
+    del d
+    if not (err <= TOL and np.isfinite(result.grid).all()):
+        raise AssertionError("the kernel's grid disagrees with the plain "
+                             "field's")
+    check_triangulator(net, dev)
+    launch_ms = time_grid_launch(net, dev)
+    log(f"[eval] the grid's wall time in the CLI {t['grid_s']:.3f} s, of "
+        f"which {sum(grid_launches)} launches x {launch_ms:.3f} ms = "
+        f"{sum(grid_launches) * launch_ms / 1e3:.3f} s in the kernel")
+    pv, pf = biggest_component(*marching.mesh_from_grid(vol))
+    k_mean, k_max = sphere_distance(result.verts)
+    p_mean, p_max = sphere_distance(pv)
+    log(f"[eval] trained surface against the sphere of radius {SPHERE_R}: "
+        f"| |v| - {SPHERE_R} | mean {k_mean:.6e} max {k_max:.6e} from the "
+        f"kernel's {EVAL_RES}^3 grid ({len(result.verts)} vertices); mean "
+        f"{p_mean:.6e} max {p_max:.6e} from the plain field's {EVAL_RES}^3 "
+        f"grid ({len(pv)} vertices); kernel - plain: mean "
+        f"{k_mean - p_mean:.3e}, max {k_max - p_max:.3e}")
+    if not (np.isfinite([k_mean, p_mean]).all() and len(pf)):
+        raise AssertionError("no trained surface to measure")
 
 
 def main():
@@ -848,8 +1070,11 @@ def main():
         e["launches"] = (launches if e["name"] == "sdf_mlp"
                          else f_launches)[e["name"]]
 
-    # 7. the training CLI on a DTU-sized scene directory
-    cli_phase()
+    # 7-8. the training CLI on a DTU-sized scene directory, then the eval
+    # CLI on its checkpoint
+    with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
+        exps = cli_phase(tmp)
+        eval_phase(tmp, exps, dev)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

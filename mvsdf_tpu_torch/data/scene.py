@@ -212,6 +212,10 @@ class SceneData:
         return out
 
     # ------------------------------------------------------------------
+    def get_scale_mat(self) -> np.ndarray:
+        """The unit-sphere -> world map of the scene (view 0's scale_mat)."""
+        return self.scale_mats[0]
+
     def change_sampling_idx(self, n: int, rng: np.random.Generator):
         """One random pixel subset per epoch shared by all images
         (ref :244-248)."""

@@ -8,10 +8,16 @@ split into 6 tets), whose case tables are derived programmatically below —
 no hand-copied lookup data — and which produces a closed, consistently
 oriented surface with the same sub-voxel edge interpolation accuracy.
 
-Grid evaluation runs the SDF field on its device in x-slabs (the analog of
-the reference's 50k-point chunks) under ``torch.no_grad``, and the
-triangulation is vectorized numpy on the host (the JAX package's numpy
-path; its optional C++ triangulator is not ported).
+Grid evaluation runs the SDF field on its device (the GPU unless the
+caller names another) in x-slabs (the analog of the reference's 50k-point
+chunks) under ``torch.no_grad``. The triangulation runs on the host: with
+``native=True`` in the C++ triangulator (``csrc/marching_tets.cpp`` through
+``marching_native.py``), which ``extract_mesh`` and ``mesh_from_grid`` use
+(the eval CLI and the training loop's snapshots); otherwise in the
+vectorized numpy code below, its plain version. The two give the same
+vertices to the bit and the same oriented faces (in another order). A
+native build or call that fails raises: there is no quiet fallback to
+numpy.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 # Unit-cube corner coordinates
 _CORNERS = np.array([(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
@@ -75,15 +83,24 @@ _TET_TABLE = _tet_tables()
 
 
 def marching_tetrahedra(volume: np.ndarray, level: float = 0.0,
-                        spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0)
+                        spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),
+                        native: bool = False
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """volume (nx, ny, nz) indexed [x, y, z] -> (verts (V, 3), faces (F, 3)).
 
     Vertices on shared cell edges are exactly deduplicated (global edge
     keys), so the mesh is usable for adjacency/max-flow trimming. Faces are
     oriented with outward normals (pointing toward positive values).
+    ``native=True`` runs the C++ triangulator (built at first use; raises if
+    it cannot be built or run), else this numpy code.
     """
     vol = np.asarray(volume, np.float32)
+    if native:
+        from .marching_native import marching_tets_native
+        verts, faces = marching_tets_native(vol, level)
+        verts = verts * np.asarray(spacing, np.float32) + np.asarray(
+            origin, np.float32)
+        return verts, faces
     nx, ny, nz = vol.shape
     if min(nx, ny, nz) < 2 or not (vol.min() < level < vol.max()):
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
@@ -156,18 +173,20 @@ def marching_tetrahedra(volume: np.ndarray, level: float = 0.0,
     vb = vol.ravel()[ub]
     t = (level - va) / np.where(np.abs(vb - va) < 1e-12, 1e-12, vb - va)
     t = np.clip(t, 0.0, 1.0)[:, None]
-    verts = pa + t * (pb - pa)
-    verts = verts * np.asarray(spacing, np.float32) + np.asarray(
-        origin, np.float32)
+    grid = pa + t * (pb - pa)
 
-    # consistent outward orientation: normal . (outside - inside) > 0
-    v0 = verts[faces[:, 0]]
-    n = np.cross(verts[faces[:, 1]] - v0, verts[faces[:, 2]] - v0)
+    # consistent outward orientation: normal . (outside - inside) > 0, taken
+    # in grid units with the C++ code's f32 operations in its order: the
+    # sign on a near-degenerate face is rounding, and this keeps it the same
+    v0 = grid[faces[:, 0]]
+    n = np.cross(grid[faces[:, 1]] - v0, grid[faces[:, 2]] - v0)
     # outward direction estimate per face: mean of (outside - inside) dirs
     d = ((pb - pa)[faces[:, 0]] + (pb - pa)[faces[:, 1]] +
          (pb - pa)[faces[:, 2]])
-    flip = (n * d).sum(1) < 0
+    flip = (n[:, 0] * d[:, 0] + n[:, 1] * d[:, 1]) + n[:, 2] * d[:, 2] < 0
     faces[flip] = faces[flip][:, [0, 2, 1]]
+    verts = grid * np.asarray(spacing, np.float32) + np.asarray(
+        origin, np.float32)
 
     # drop degenerate faces (repeated vertices after dedup)
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
@@ -177,11 +196,12 @@ def marching_tetrahedra(volume: np.ndarray, level: float = 0.0,
 
 def eval_sdf_grid(sdf_fn: Callable, resolution: int = 512,
                   bounds=(-1.0, 1.0), slab: int = 8,
-                  device="cpu") -> np.ndarray:
+                  device=None) -> np.ndarray:
     """Evaluate sdf_fn (points (..., 3) tensor -> values (...,)) on a uniform
     grid over bounds^3 -> (res, res, res) indexed [x, y, z], in slabs of
-    ``slab`` x-planes on ``device`` under ``torch.no_grad`` (analog of the
-    50k chunks, ref plots.py:161)."""
+    ``slab`` x-planes on ``device`` (the GPU unless named) under
+    ``torch.no_grad`` (analog of the 50k chunks, ref plots.py:161)."""
+    device = resolve_device(device)
     xs = np.linspace(bounds[0], bounds[1], resolution, dtype=np.float32)
     yy, zz = np.meshgrid(xs, xs, indexing="ij")
     yz = torch.from_numpy(np.stack([yy, zz], -1)).to(device)  # (r, r, 2)
@@ -198,14 +218,22 @@ def eval_sdf_grid(sdf_fn: Callable, resolution: int = 512,
 
 
 def extract_mesh(sdf_fn, resolution: int = 512, bounds=(-1.0, 1.0),
-                 scale_mat: np.ndarray = None, slab: int = 8, device="cpu"):
-    """Full extraction: grid-eval -> marching tetrahedra -> optional world
-    transform by scale_mat (ref eval.py:109-119)."""
+                 scale_mat: np.ndarray = None, slab: int = 8, device=None):
+    """Full extraction: grid-eval (on ``device``, the GPU unless named) ->
+    marching tetrahedra (native) -> optional world transform by scale_mat
+    (ref eval.py:109-119)."""
     vol = eval_sdf_grid(sdf_fn, resolution, bounds, slab, device)
-    step = (bounds[1] - bounds[0]) / (resolution - 1)
+    return mesh_from_grid(vol, bounds, scale_mat)
+
+
+def mesh_from_grid(vol: np.ndarray, bounds=(-1.0, 1.0),
+                   scale_mat: np.ndarray = None):
+    """The surface of an ``eval_sdf_grid`` volume over bounds^3 by the C++
+    triangulator, optionally mapped to the world by scale_mat."""
+    step = (bounds[1] - bounds[0]) / (vol.shape[0] - 1)
     verts, faces = marching_tetrahedra(
         vol, 0.0, spacing=(step, step, step),
-        origin=(bounds[0], bounds[0], bounds[0]))
+        origin=(bounds[0], bounds[0], bounds[0]), native=True)
     if scale_mat is not None and len(verts):
         verts = verts @ scale_mat[:3, :3].T + scale_mat[:3, 3]
     return verts, faces

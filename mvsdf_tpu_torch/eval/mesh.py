@@ -1,7 +1,7 @@
-"""Mesh utilities (port of ``mvsdf_tpu/eval/mesh.py``): OBJ export, face
-areas, connected components (the biggest-component cleanup the reference
-does with trimesh.split, ``evaluation/eval.py:121-125``). Pure numpy +
-scipy.sparse.
+"""Mesh utilities (port of ``mvsdf_tpu/eval/mesh.py``): OBJ export and
+import, face areas, connected components (the biggest-component cleanup
+the reference does with trimesh.split, ``evaluation/eval.py:121-125``).
+Pure numpy + scipy.sparse.
 """
 from __future__ import annotations
 
@@ -63,3 +63,22 @@ def save_obj(path: str, verts: np.ndarray, faces: np.ndarray,
                         f"{c[0]:.4f} {c[1]:.4f} {c[2]:.4f}\n")
         for t in faces + 1:
             f.write(f"f {t[0]} {t[1]} {t[2]}\n")
+
+
+def load_obj(path: str):
+    """Minimal OBJ reader -> (verts, faces, vertex_colors|None)."""
+    verts, faces, colors = [], [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(x) for x in parts[1:4]])
+                if len(parts) >= 7:
+                    colors.append([float(x) for x in parts[4:7]])
+            elif line.startswith("f "):
+                idx = [p.split("/")[0] for p in line.split()[1:4]]
+                faces.append([int(x) - 1 for x in idx])
+    v = np.asarray(verts, np.float32)
+    fc = np.asarray(faces, np.int64)
+    c = np.asarray(colors, np.float32) if colors else None
+    return v, fc, c

@@ -15,11 +15,14 @@ Random draws come from a ``torch.Generator``; the ``noise=`` dict replays
 given draws instead (``minimal_steps``, ``eik_points``,
 ``dsurf_jitter_noise``, ``dsurf_on_idx``, ``dsurf_jitter_idx``) so tests can
 feed the JAX package and this port identical randomness.
+``render_view`` renders a whole view in eval mode, in fixed chunks of rays
+(the eval CLI and the training loop's full render).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..compaction import compact_call_into
@@ -312,3 +315,25 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
         surf_logits_pos=surf_logits_pos,
         surf_logits_pos_mask=surf_logits_pos_mask,
         surf_logits_neg=surf_logits_neg)
+
+
+def render_view(model, net, uv: torch.Tensor, intr: torch.Tensor,
+                pose: torch.Tensor, mask: torch.Tensor,
+                chunk: int) -> np.ndarray:
+    """One view's rays through the eval-mode renderer in fixed chunks of
+    ``chunk`` rays (the tail padded with ray 0): uv (HW, 2), intr and pose
+    (1, 4, 4), mask (HW,) on the device -> rgb (HW, 3) in [-1, 1]."""
+    total = uv.shape[0]
+    n_chunks = -(-total // chunk)
+    sel_all = torch.cat([
+        torch.arange(total),
+        torch.zeros(n_chunks * chunk - total, dtype=torch.int64)]
+    ).reshape(n_chunks, chunk).to(uv.device)
+    out = []
+    with torch.no_grad():
+        for s in sel_all:
+            inputs = {"uv": uv[s][None], "intrinsics": intr, "pose": pose,
+                      "object_mask": mask[s][None]}
+            out.append(render_forward(model, net, inputs,
+                                      training=False).rgb_values[0])
+    return torch.cat(out)[:total].cpu().numpy()

@@ -1,12 +1,17 @@
-"""Build and load the trace's CUDA kernels.
+"""Build and load the trace's CUDA kernels and the host C++ libraries.
 
 Every ``csrc/*.cu`` is compiled for sm_90a by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with
 a plain C interface, loaded with ctypes. The library lands in ``_build/``
-beside this file, named by a hash of every file under ``csrc/`` (sources
-and headers) and of the compiler flags, so an edit anywhere there, or to
-the flags, builds a new one. The build runs at the first launch of any
-kernel, never at import.
+beside this file, named by a hash of every CUDA file under ``csrc/``
+(``*.cu`` sources and ``*.cuh`` headers) and of the compiler flags, so an
+edit to any of them, or to the flags, builds a new one. The build runs at
+the first launch of any kernel, never at import.
+
+A ``csrc/*.cpp`` file is host code (the mesh triangulator): ``host_library``
+compiles it alone with the system C++ compiler into its own library in
+``_build/``, named by a hash of the source and the flags, at first use. It
+needs no CUDA toolkit, so it builds wherever ``c++`` is.
 """
 from __future__ import annotations
 
@@ -23,9 +28,13 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no fused multiply-adds: the triangulator's f32 arithmetic stays numpy's
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+CUDA_SUFFIXES = (".cu", ".cuh")
 
 _LIB = None
 _FNS = {}
+_HOST_LIBS = {}
 _LOCK = threading.Lock()
 
 
@@ -40,13 +49,16 @@ def _nvcc() -> str:
 
 
 def _files(csrc: str) -> List[str]:
+    """The CUDA files under ``csrc``: what the kernels' library is built
+    from."""
     return sorted(f for f in os.listdir(csrc)
-                  if os.path.isfile(os.path.join(csrc, f)))
+                  if os.path.isfile(os.path.join(csrc, f)) and
+                  f.endswith(CUDA_SUFFIXES))
 
 
 def library_path(csrc: str = CSRC, build_dir: str = BUILD_DIR) -> str:
     """Path of the library built from ``csrc``: named by a hash of every
-    file there (name and bytes) and of the compiler flags."""
+    CUDA file there (name and bytes) and of the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in _files(csrc):
         h.update(b"\0" + name.encode() + b"\0")
@@ -114,3 +126,44 @@ def function(name: str, argtypes: Sequence):
             fn.restype = ctypes.c_int
             _FNS[name] = fn
         return _FNS[name]
+
+
+def host_library_path(source: str, csrc: str = CSRC,
+                      build_dir: str = BUILD_DIR) -> str:
+    """Path of the host library built from ``csrc/source``: named by a hash
+    of the source's bytes and the compiler flags."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(csrc, source), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build_host(source: str, csrc: str = CSRC,
+               build_dir: str = BUILD_DIR) -> str:
+    """Compile the host C++ file ``csrc/source`` into a shared library with
+    the system C++ compiler (no-op when it exists); returns its path."""
+    path = host_library_path(source, csrc, build_dir)
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler found to build {source}")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    res = subprocess.run([cxx, *HOST_FLAGS, os.path.join(csrc, source),
+                          "-o", tmp], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(cxx)} {source} failed "
+                           f"({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The host library of ``csrc/source``, built at first use; the caller
+    sets its functions' argument and result types."""
+    with _LOCK:
+        if source not in _HOST_LIBS:
+            _HOST_LIBS[source] = ctypes.CDLL(build_host(source))
+        return _HOST_LIBS[source]

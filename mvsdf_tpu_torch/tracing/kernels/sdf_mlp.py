@@ -24,8 +24,11 @@ hi = bf16(v) and lo = bf16(v - hi), summed in f32.
 - ``sdf_mlp_reference`` and ``sdf_mlp_xyz_reference`` are the plain f32
   PyTorch versions of the kernels' function: the yardstick the kernels are
   held to. ``sdf_mlp_split_reference`` is the plain version of the kernels'
-  arithmetic, split products and all. The tests use them, and the chip
-  smoke run holds the kernels against them.
+  arithmetic, split products and all, with f32 sums or, with
+  ``accumulation="tensor_core"``, the sums as the card's tensor cores take
+  them (``tc_k_step``: each k-step's terms aligned and cut toward zero,
+  which is where the kernels' one-sided error from f32 comes from). The
+  tests use them, and the chip smoke run holds the kernels against them.
 - ``sdf_mlp`` and ``sdf_mlp_xyz`` run the plain version for a tensor on the
   CPU, and for a CUDA tensor launch the kernel or raise. Their
   ``.launches`` count kernel launches.
@@ -35,7 +38,7 @@ The kernels are built at first use (``build.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -207,23 +210,30 @@ def pack_sdf_weights(net: ImplicitNetwork) -> PackedSDF:
 
 def mlp_chain(packed: PackedSDF, pe: torch.Tensor, matmul) -> torch.Tensor:
     """pe (N, d_pe) f32 -> sdf (N,) with every layer's product taken by
-    ``matmul(a, w)``; bias, the skip's 1/sqrt(2), softplus100 and the SDF
-    column's dot product in f32."""
+    ``matmul(a, w, acc)`` (acc + a @ w, acc None for zero); bias, the
+    skip's 1/sqrt(2), softplus100 and the SDF column's dot product in f32.
+    A skip layer's product from the encoding is accumulated onto the one
+    from h, as the tile does."""
     inv_sqrt2 = 1.0 / np.sqrt(2.0)
-    h = softplus100(matmul(pe, packed.w_in) + packed.b_in)
+    h = softplus100(matmul(pe, packed.w_in, None) + packed.b_in)
     k = 0
     for j, is_skip in enumerate(packed.skip):
-        z = matmul(h, packed.w_hid[j])
+        z = matmul(h, packed.w_hid[j], None)
         if is_skip:
-            z = (z + matmul(pe, packed.w_skip_pe[k])) * inv_sqrt2
+            z = matmul(pe, packed.w_skip_pe[k], z) * inv_sqrt2
             k += 1
         h = softplus100(z + packed.b_hid[j])
     return h @ packed.w_out + packed.b_out
 
 
+def f32_matmul(a: torch.Tensor, w: torch.Tensor,
+               acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return a @ w if acc is None else acc + a @ w
+
+
 def sdf_mlp_reference(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: pe (N, d_pe) f32 -> sdf (N,)."""
-    return mlp_chain(packed, pe, torch.matmul)
+    return mlp_chain(packed, pe, f32_matmul)
 
 
 def sdf_mlp_xyz_reference(packed: PackedSDF, multires: int,
@@ -233,22 +243,91 @@ def sdf_mlp_xyz_reference(packed: PackedSDF, multires: int,
     return sdf_mlp_reference(packed, positional_encoding(x, multires))
 
 
-def split_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w as the tensor-core tile computes it: both operands split by
-    ``split_bf16``, a_hi w_hi + a_lo w_hi + a_hi w_lo with every product
+def split_matmul(a: torch.Tensor, w: torch.Tensor,
+                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """acc + a @ w as the tensor-core tile computes it: both operands split
+    by ``split_bf16``, a_hi w_hi + a_lo w_hi + a_hi w_lo with every product
     exact and the sums in f32."""
     a_hi, a_lo = (t.float() for t in split_bf16(a))
     w_hi, w_lo = (t.float() for t in split_bf16(w))
-    return a_hi @ w_hi + a_lo @ w_hi + a_hi @ w_lo
+    out = a_hi @ w_hi + a_lo @ w_hi + a_hi @ w_lo
+    return out if acc is None else acc + out
 
 
-def sdf_mlp_split_reference(packed: PackedSDF,
-                            pe: torch.Tensor) -> torch.Tensor:
+# --- the tensor cores' accumulation ----------------------------------------
+
+# One `wgmma` k-step on the H100 (test_wgmma_k_step_rounding in
+# tests/test_torch_cuda.py holds this model to the card): the 16 bf16
+# products are exact; each of them and the f32 accumulator is aligned to E,
+# the largest exponent among them (a product's being the sum of its
+# operands' exponents, its significand in [1, 4)), and cut toward zero to a
+# multiple of 2^(E - TC_ALIGN_BITS); the cut terms are summed exactly and
+# the sum cut toward zero to f32.
+TC_ALIGN_BITS = 25
+TC_MODEL_ROWS = 1024   # rows ``tc_matmul`` models at a time (f64 memory)
+
+
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32, rounded toward zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def binary_exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) of f64 values, exactly; -2000 for 0."""
+    e = torch.frexp(x).exponent.double() - 1
+    return torch.where(x == 0, torch.full_like(e, -2000.0), e)
+
+
+def tc_k_step(acc: torch.Tensor, a: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """acc (N, H) f32 + a (N, k) @ w (k, H) as one `wgmma` k-step of the H100
+    adds them (a and w hold bf16 values, k <= 16; see TC_ALIGN_BITS)."""
+    A, W, C = a.double(), w.double(), acc.double()
+    P = A[:, :, None] * W[None]                      # (N, k, H), exact
+    Ep = binary_exponent(A)[:, :, None] + binary_exponent(W)[None]
+    Ep = torch.where(P == 0, torch.full_like(Ep, -2000.0), Ep)
+    E = torch.maximum(Ep.amax(1), binary_exponent(C))
+    q = torch.exp2(torch.clamp(E, min=-1000.0) - TC_ALIGN_BITS)
+    s = (torch.trunc(P / q[:, None]) * q[:, None]).sum(1) + \
+        torch.trunc(C / q) * q
+    return round_toward_zero(s)
+
+
+def tc_matmul(a: torch.Tensor, w: torch.Tensor,
+              acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """acc + a @ w as the tile computes it: ``split_matmul``'s three bf16
+    passes, every 16-row k-step of w taking hi x hi, lo x hi, hi x lo in
+    turn into one accumulator by ``tc_k_step``."""
+    a_hi, a_lo = (t.float() for t in split_bf16(a))
+    w_hi, w_lo = (t.float() for t in split_bf16(w))
+    out = (torch.zeros(a.shape[0], w.shape[1], device=a.device)
+           if acc is None else acc.clone())
+    for r in range(0, a.shape[0], TC_MODEL_ROWS):
+        o = out[r:r + TC_MODEL_ROWS]
+        for k in range(0, w.shape[0], TC_K):
+            for x, y in ((a_hi, w_hi), (a_lo, w_hi), (a_hi, w_lo)):
+                o = tc_k_step(o, x[r:r + TC_MODEL_ROWS, k:k + TC_K],
+                              y[k:k + TC_K])
+        out[r:r + TC_MODEL_ROWS] = o
+    return out
+
+
+def sdf_mlp_split_reference(packed: PackedSDF, pe: torch.Tensor,
+                            accumulation: str = "f32") -> torch.Tensor:
     """Plain PyTorch version of the kernels' arithmetic, step by step: pe
-    (N, d_pe) f32 -> sdf (N,), every product by ``split_matmul``. The
-    kernel differs from it in how the f32 sums are taken: their order, and
-    the tensor cores' own accumulation."""
-    return mlp_chain(packed, pe, split_matmul)
+    (N, d_pe) f32 -> sdf (N,), every product split into three bf16 passes.
+    ``accumulation="f32"`` sums them in f32 (``split_matmul``);
+    ``"tensor_core"`` as the card's tensor cores do (``tc_matmul``, which
+    cuts where f32 would round: the kernels' one-sided error; slow, f64 on
+    the host's or card's vector units). The kernel still differs from the
+    latter in its epilogue's f32 roundings and the SDF column's sum."""
+    if accumulation == "f32":
+        return mlp_chain(packed, pe, split_matmul)
+    if accumulation != "tensor_core":
+        raise ValueError(f"accumulation {accumulation!r}")
+    return mlp_chain(packed, pe, tc_matmul)
 
 
 # --- launching ------------------------------------------------------------

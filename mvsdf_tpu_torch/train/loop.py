@@ -188,15 +188,16 @@ class Trainer:
              chunk_pixels: int = 10000):
         """Periodic mesh snapshot (analog of plots.get_surface_trace,
         ref idr_train.py:246-247): the plain SDF field on a grid, its
-        surface as an OBJ and an HTML scene; with full=True also renders
-        one full view through the eval-mode renderer in fixed chunks of
-        rays and writes it beside the ground truth (ref plot_epoch full)."""
+        surface (the C++ triangulator) as an OBJ and an HTML scene; with
+        full=True also renders one full view through the eval-mode renderer
+        in fixed chunks of rays and writes it beside the ground truth (ref
+        plot_epoch full)."""
         from ..eval.html_viewer import write_scene_html
         from ..eval.marching import extract_mesh
         from ..eval.mesh import save_obj
         from ..eval.plots import plot_image_grid
         from ..fields.sdf import sdf_apply
-        from ..rendering.renderer import render_forward
+        from ..rendering.renderer import render_view
 
         net = self.state.net
         t0 = time.perf_counter()
@@ -215,24 +216,12 @@ class Trainer:
         if full:
             t0 = time.perf_counter()
             idx = int(self.rng.integers(self.scene.n_images))
-            total = self.scene.total_pixels
-            chunk = min(chunk_pixels, total)
-            n_chunks = -(-total // chunk)
-            sel_all = torch.cat([
-                torch.arange(total),
-                torch.zeros(n_chunks * chunk - total, dtype=torch.int64)]
-            ).reshape(n_chunks, chunk).to(self.device)
             c = self.cache
-            view = {"intrinsics": c.intrinsics[idx:idx + 1],
-                    "pose": c.poses[idx:idx + 1]}
-            out = []
-            with torch.no_grad():
-                for s in sel_all:
-                    inputs = dict(view, uv=c.uv[s][None],
-                                  object_mask=c.masks[idx][s][None])
-                    out.append(render_forward(self.cfg.model, net, inputs,
-                                              training=False).rgb_values[0])
-            rgb = torch.cat(out)[:total].cpu().numpy()[None]
+            rgb = render_view(self.cfg.model, net, c.uv,
+                              c.intrinsics[idx:idx + 1],
+                              c.poses[idx:idx + 1], c.masks[idx],
+                              min(chunk_pixels, self.scene.total_pixels)
+                              )[None]
             self.last_render = (epoch, idx, rgb)
             plot_image_grid(
                 os.path.join(self.plots_dir, f"rendering_{epoch}.png"),

@@ -242,6 +242,77 @@ def test_png_native_unfilter_matches_plain_version(cuda):
         png.unfilter(rows, 8, native=True)
 
 
+def wgmma_k_step_fn(build_dir):
+    """The probe ``wgmma_probe`` of tests/csrc/wgmma_probe.cu, built alone
+    beside a copy of the tile's header into ``build_dir`` (it is no part of
+    the port's kernel library): (a, b, c) -> c + a @ b by one m64n32k16
+    `wgmma`, a (64, 16) and b (16, 32) bf16, c (64, 32) f32 on the card."""
+    import ctypes
+    import shutil
+    from mvsdf_tpu_torch.tracing.kernels import build
+    src = os.path.join(build_dir, "csrc")
+    os.makedirs(src)
+    shutil.copy(os.path.join(os.path.dirname(__file__), "csrc",
+                             "wgmma_probe.cu"), src)
+    shutil.copy(os.path.join(build.CSRC, "mlp_tile_tc.cuh"), src)
+    fn = ctypes.CDLL(build.build(csrc=src, build_dir=build_dir)).wgmma_probe
+    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+
+    def k_step(a, b, c):
+        d = torch.empty_like(c)
+        K.raise_on_error(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                            d.data_ptr(), K.stream(c.device)), "wgmma_probe")
+        return d
+    return k_step
+
+
+def k_step_inputs(kind, gen):
+    """(a (64, 16) bf16, b (16, 32) bf16, c (64, 32) f32): operand exponents
+    2^-6..2^6 ("wide") or 2^-1..2^1 ("narrow") of random signs, c uniform
+    in +-4 (those two), 0 ("zero_c"), or near minus the products' sum
+    ("cancel")."""
+    def bf16(shape, lo, hi):
+        m = torch.rand(shape, generator=gen, dtype=torch.float64) + 1
+        e = torch.randint(lo, hi + 1, shape, generator=gen).double()
+        s = torch.randint(0, 2, shape, generator=gen).double() * 2 - 1
+        return (s * m * 2 ** e).bfloat16()
+
+    lo, hi = (-1, 1) if kind == "narrow" else (-6, 6)
+    a, b = bf16((64, 16), lo, hi), bf16((16, 32), lo, hi)
+    if kind == "zero_c":
+        c = torch.zeros(64, 32)
+    elif kind == "cancel":
+        c = -(a.double() @ b.double()).float() * (
+            1 + 1e-3 * torch.rand((64, 32), generator=gen))
+    else:
+        c = (torch.rand((64, 32), generator=gen, dtype=torch.float64) * 8
+             - 4).float()
+    return a, b, c
+
+
+@pytest.mark.cuda
+def test_wgmma_k_step_rounding(cuda, tmp_path):
+    """One m64n32k16 k-step of the tile's `wgmma` (tests/csrc/
+    wgmma_probe.cu) on 4 kinds x 4 seeds x 2,048 = 32,768 sums of an f32 c
+    and 16 bf16 products, whose exact value needs more than f32's 24 bits:
+    the card does not round the sum to nearest (more than 10,000 of them
+    differ from that), it gives ``tc_k_step``'s model of its accumulation to
+    the bit (terms aligned to the largest operand exponent sum, cut toward
+    zero at 25 bits, the sum cut toward zero)."""
+    k_step = wgmma_k_step_fn(str(tmp_path))
+    off_nearest = 0
+    for kind in ("wide", "narrow", "zero_c", "cancel"):
+        for seed in range(4):
+            a, b, c = k_step_inputs(kind, torch.Generator().manual_seed(seed))
+            got = k_step(a.to(cuda), b.to(cuda), c.to(cuda)).cpu()
+            nearest = (c.double() + a.double() @ b.double()).float()
+            off_nearest += int((got != nearest).sum())
+            assert torch.equal(got, K.tc_k_step(c, a.float(), b.float())), \
+                (kind, seed)
+    assert off_nearest > 10000
+
+
 CLI_CONF = """
 train{ plot_freq = 1/2 }
 model{
@@ -294,3 +365,37 @@ def test_training_cli_on_the_card(cuda, tmp_path, monkeypatch):
     for e in (2, 4):
         assert os.path.exists(os.path.join(trainer.plots_dir,
                                            f"surface_{e}.obj"))
+
+
+@pytest.mark.cuda
+def test_eval_cli_on_the_card(cuda, tmp_path):
+    """The eval CLI (--pallas --resolution 128 --eval_rendering) on the
+    epoch-2 checkpoint of a training CLI run on a 3-view scene: the mesh,
+    HTML scene, PNGs and a finite PSNR; sdf_mlp launched (16 slabs of the
+    grid and the traces) and no other kernel."""
+    from mvsdf_tpu_torch.data.synthetic import write_scene_dir
+    from mvsdf_tpu_torch.eval import cli as eval_cli
+    from mvsdf_tpu_torch.train import cli
+    data = write_scene_dir(str(tmp_path), n_images=3, img_hw=(48, 64),
+                           depth_hw=(24, 32))
+    conf = tmp_path / "small.conf"
+    conf.write_text(CLI_CONF)
+    common = ["--data_dir", data, "--conf", str(conf), "--exps_folder",
+              str(tmp_path / "exps"), "--pallas"]
+    cli.main(common + ["--allow_random_features", "--batch_size", "3",
+                       "--nepoch", "2", "--num_pixels", "256"])
+    counted = (K.sdf_mlp, K.sdf_mlp_xyz, S.secant, M.sphere_march)
+    before = [f.launches for f in counted]
+    result = eval_cli.main(common + ["--resolution", "128",
+                                     "--eval_rendering", "--evals_folder",
+                                     str(tmp_path / "evals")])
+    launches = [f.launches - b for f, b in zip(counted, before)]
+    evaldir = tmp_path / "evals" / "mvsdf"
+    assert result.epoch == 2 and len(result.faces) > 0
+    for name in ("surface_world_coordinates_2.obj", "scene_2.html",
+                 "psnr.txt"):
+        assert (evaldir / name).is_file(), name
+    assert sorted(os.listdir(evaldir / "rendering")) == [
+        f"eval_{i:03d}.png" for i in range(3)]
+    assert len(result.psnrs) == 3 and np.isfinite(result.psnrs).all()
+    assert launches[0] > 128 // 8 and launches[1:] == [0, 0, 0], launches

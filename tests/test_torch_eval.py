@@ -53,20 +53,27 @@ def _oriented_triangles(verts, faces):
 @pytest.mark.parametrize("resolution,slab", [(29, 8), (32, 5)])
 def test_extract_mesh_matches_jax(resolution, slab):
     """Ragged and whole slabs: the grid, the numpy triangulation and the
-    largest component are the JAX package's; its default C++ triangulator
-    gives the same oriented triangles, numbered in another order."""
-    vol = t_march.eval_sdf_grid(_two_blobs(torch), resolution, slab=slab)
+    largest component are the JAX package's; ``extract_mesh`` triangulates
+    with the C++ code as the JAX package's does by default, giving its
+    vertices and faces exactly, and the numpy path's vertices with the same
+    oriented triangles, numbered in another order."""
+    vol = t_march.eval_sdf_grid(_two_blobs(torch), resolution, slab=slab,
+                                device="cpu")
     np.testing.assert_allclose(   # torch's and XLA's sqrt / sin: 1 ulp
         vol, j_march.eval_sdf_grid(_two_blobs(jnp), resolution, slab=slab),
         rtol=0, atol=1e-6)
     step = 2.0 / (resolution - 1)
     kw = dict(spacing=(step,) * 3, origin=(-1.0,) * 3)
-    tv, tf = t_march.extract_mesh(_two_blobs(torch), resolution, slab=slab)
+    tv, tf = t_march.marching_tetrahedra(vol, 0.0, **kw)
     jv, jf = j_march.marching_tetrahedra(vol, 0.0, native=False, **kw)
     assert len(tf) > 100
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_array_equal(tf, jf)
-    nv, nf = j_march.marching_tetrahedra(vol, 0.0, **kw)
+    nv, nf = t_march.extract_mesh(_two_blobs(torch), resolution, slab=slab,
+                                  device="cpu")
+    gv, gf = j_march.marching_tetrahedra(vol, 0.0, **kw)
+    np.testing.assert_array_equal(nv, gv)
+    np.testing.assert_array_equal(nf, gf)
     assert _oriented_triangles(tv, tf) == _oriented_triangles(nv, nf)
     for by in ("area", "faces"):
         a, b = (t_mesh.biggest_component(tv, tf, by=by),
@@ -87,7 +94,7 @@ def test_snapshot_grid_of_the_field_matches_jax():
     net.load_state_dict({k[len("implicit."):]: v for k, v in state.items()})
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     ours = t_march.eval_sdf_grid(lambda x: t_sdf.sdf_apply(net, x), 20,
-                                 slab=6)
+                                 slab=6, device="cpu")
     theirs = j_march.eval_sdf_grid(
         lambda x: j_sdf.sdf_apply(jcfg, jp, x), 20, slab=6)
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=2e-5)

@@ -6,6 +6,9 @@ radiance 2 x 64), on a 3-5 image scene directory written by
   weights, and the RNG stream) equals the JAX package's ``Trainer`` on the
   same scene, element for element; both sides' steps are replaced by
   recorders, so nothing trains.
+- A run resumed from an epoch that drew a full render's view skips that
+  draw in both packages; the port's resumed stream equals the JAX
+  package's resumed stream.
 - The trace's auto capacity helpers equal the JAX package's.
 - The CLI trains (``--pallas --platform cpu``) in a subprocess: a torch
   optimizer step changes XLA:CPU results for the rest of its process.
@@ -15,6 +18,7 @@ radiance 2 x 64), on a 3-5 image scene directory written by
   checkpoint, missing FeatExt weights, no GPU without ``--platform cpu``.
 """
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -243,6 +247,79 @@ def test_host_plan_matches_the_jax_trainer(env, tmp_path):
             assert a.shape == b.shape
             np.testing.assert_array_equal(a, b)
     assert pt.rng.bit_generator.state == jt.rng.bit_generator.state
+
+
+def _recording_trainers(env, exp_dir, seen):
+    """A JAX and a port Trainer over 6 epochs (nepochs 5) whose steps
+    record their inputs into ``seen`` and whose snapshots run at a 16^3
+    grid, with a plot every epoch and a full render at epoch 4; the JAX
+    full render's chunk program is replaced by zeros (its view is still
+    drawn from the host RNG), the port's renders."""
+    jcfg, tcfg = _configs(5, 2, 37)
+    jcfg = dataclasses.replace(jcfg, train=dataclasses.replace(
+        jcfg.train, plot_freq=0.2, fused_dispatch=False))
+    tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(
+        tcfg.train, plot_freq=0.2))
+    logs = []
+    jt = JTrainer(jcfg, JScene(env["scene5"], allow_random_features=True),
+                  os.path.join(exp_dir, "j"), use_mesh=False,
+                  log_fn=logs.append)
+    pt = Trainer(tcfg, SceneData(env["scene5"], allow_random_features=True,
+                                 device="cpu"),
+                 os.path.join(exp_dir, "t"), device="cpu",
+                 log_fn=logs.append)
+
+    def j_get_step(phase):
+        def step(state, batch, w, key):
+            seen["jax"].append((np.asarray(batch["indices"]),
+                                np.asarray(batch["uv"])))
+            return state, {k: jnp.zeros(()) for k in METRICS}
+        return step
+
+    def t_get_step(phase):
+        def step(state, batch, w, generator):
+            seen["port"].append((batch["indices"].numpy(),
+                                 batch["uv"].numpy()))
+            return {k: torch.zeros(()) for k in METRICS}
+        return step
+
+    jt._get_step, pt._get_step = j_get_step, t_get_step
+    jt.plot = functools.partial(JTrainer.plot, jt, resolution=16)
+    jt._full_render_fn = lambda p, uv, intr, pose, m: jnp.zeros(
+        (uv.shape[0], 3))
+    pt.plot = functools.partial(Trainer.plot, pt, resolution=16)
+    return jt, pt, logs
+
+
+def test_resume_from_an_epoch_with_a_full_render_matches_jax(env,
+                                                             tmp_path):
+    """Both packages save an epoch's checkpoint before its snapshot draws
+    the full render's view from the host RNG, so a run resumed from such
+    an epoch (4 here) skips that draw and its later epochs sample other
+    pixels than the unbroken run's. The port keeps the JAX package's
+    stream: resumed against resumed, and unbroken against unbroken, every
+    step's images and pixels are equal, and so is the host RNG after."""
+    runs = {}
+    for tag in ("unbroken", "resumed"):
+        seen = {"jax": [], "port": []}
+        jt, pt, logs = _recording_trainers(env, str(tmp_path), seen)
+        resume = tag == "resumed"
+        jt.run(resume=resume, resume_step=4 if resume else None)
+        pt.run(resume=resume, resume_step=4 if resume else None)
+        assert not any("plot failed" in str(m) for m in logs), logs
+        runs[tag] = seen
+        assert pt.rng.bit_generator.state == jt.rng.bit_generator.state
+    assert os.path.exists(os.path.join(str(tmp_path), "t", "plots",
+                                       "rendering_4.png"))
+    assert [len(runs[t]["port"]) for t in runs] == [12, 2]
+    for tag, seen in runs.items():
+        assert len(seen["jax"]) == len(seen["port"]), tag
+        for ours, theirs in zip(seen["port"], seen["jax"]):
+            for a, b in zip(ours, theirs):
+                np.testing.assert_array_equal(a, b)
+    # the limit: epoch 5 resumed from epoch 4 is not epoch 5 unbroken
+    assert not np.array_equal(runs["resumed"]["port"][0][1],
+                              runs["unbroken"]["port"][10][1])
 
 
 @pytest.mark.parametrize("keep_fill", [False, True])

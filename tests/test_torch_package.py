@@ -17,7 +17,10 @@ from mvsdf_tpu import config as jc
 from mvsdf_tpu_torch import config as tc
 from mvsdf_tpu_torch.convert import params_from_jax, params_to_jax
 from mvsdf_tpu_torch.data.synthetic import make_scene
+from mvsdf_tpu_torch.eval import marching_native
+from mvsdf_tpu_torch.eval.marching import eval_sdf_grid, extract_mesh
 from mvsdf_tpu_torch.fields.network import MVSDFNetwork
+from mvsdf_tpu_torch.tracing.kernels import build
 from mvsdf_tpu_torch.train.step import init_params, init_train_state
 from tests.golden.scene_fixtures import make_scene as golden_make_scene
 
@@ -86,6 +89,26 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
         init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_train_state(cfg, device="cuda")
+    sphere = lambda x: x.norm(dim=-1) - 0.5
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_sdf_grid(sphere, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_mesh(sphere, 8)
+    assert extract_mesh(sphere, 8, device="cpu")[1].shape[1] == 3
+
+
+def test_the_eval_modules_are_scanned_and_build_from_the_port():
+    """The scans above cover the eval slice, and the host C++ the port
+    compiles is its own copy under its csrc/, never a source of the JAX
+    package."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("eval/cli.py", "eval/psnr.py", "eval/chamfer.py",
+                "eval/dtu_eval.py", "eval/marching_native.py",
+                "eval/mesh.py", "data/convert.py"):
+        assert os.path.join("mvsdf_tpu_torch", mod) in files, mod
+    src = os.path.join(build.CSRC, marching_native.SOURCE)
+    assert os.path.exists(src)
+    assert os.path.commonpath([src, PORT]) == PORT
 
 
 def test_params_from_jax_round_trip_is_exact():

@@ -46,9 +46,11 @@ def _pe(n, seed=2):
     return positional_encoding(torch.from_numpy(x), 6)
 
 
-def _one_pass(a, w):
-    """a @ w as one bf16 tensor-core pass would take it: hi x hi alone."""
-    return a.bfloat16().float() @ w.bfloat16().float()
+def _one_pass(a, w, acc=None):
+    """acc + a @ w as one bf16 tensor-core pass would take it: hi x hi
+    alone."""
+    out = a.bfloat16().float() @ w.bfloat16().float()
+    return out if acc is None else acc + out
 
 
 def _layer_matrices(packed):
@@ -214,3 +216,61 @@ def test_tc_weight_args_check_the_stream():
         K.tc_weight_args(packed._replace(w_tc=packed.w_tc.float()), cpu)
     with pytest.raises(ValueError):
         K.tc_weight_args(packed._replace(v_tc=packed.v_tc[:, :32]), cpu)
+
+
+@pytest.mark.parametrize("c,terms,want", [
+    # 1 + 3 2^-25: the exact sum's bits below 2^-24 are cut; nearest gives
+    # 1 + 2^-23
+    (0.0, [(1.0, 1.0), (2.0 ** -12, 3 * 2.0 ** -13)], 1.0),
+    (1.0, [(2.0 ** -12, 3 * 2.0 ** -13)], 1.0),
+    (-1.0, [(-(2.0 ** -12), 3 * 2.0 ** -13)], -1.0),
+    # aligned to the operands' exponent sum (0 for 1.5 x 1.5 = 2.25): a
+    # term of 2^-25 survives the cut at 2^-25, and 2.25 + 2^-25 cuts to
+    # 2.25 in f32
+    (0.0, [(1.5, 1.5), (2.0 ** -12, 2.0 ** -13)], 2.25),
+    # exact sums stay exact
+    (0.5, [(1.5, 1.5), (-0.25, 2.0)], 2.25),
+])
+def test_tensor_core_k_step_model(c, terms, want):
+    """``tc_k_step`` on hand-made k-steps: where f32 would round to nearest
+    it cuts toward zero."""
+    a = torch.tensor([[x for x, _ in terms]], dtype=torch.bfloat16).float()
+    w = torch.tensor([[y] for _, y in terms], dtype=torch.bfloat16).float()
+    acc = torch.tensor([[c]], dtype=torch.float32)
+    assert K.tc_k_step(acc, a, w).item() == want
+
+
+def test_tensor_core_k_step_model_on_random_sums():
+    """Over random bf16 k-steps: never farther from the exact sum than the
+    17 cuts (each below 2^-25 of 2^E <= the largest term) and the final cut
+    (below 2^-23 of the sum) allow, and never above it in magnitude where
+    every term is positive."""
+    gen = torch.Generator().manual_seed(0)
+    a = (torch.randn(256, 16, generator=gen) * 4).bfloat16().float()
+    w = (torch.randn(16, 8, generator=gen) * 4).bfloat16().float()
+    acc = torch.randn(256, 8, generator=gen)
+    exact = acc.double() + a.double() @ w.double()
+    got = K.tc_k_step(acc, a, w)
+    big = torch.maximum((a.double()[:, :, None] * w.double()[None]).abs()
+                        .amax(1), acc.double().abs())
+    assert ((got.double() - exact).abs() <=
+            17 * 2.0 ** -25 * big + 2.0 ** -23 * exact.abs()).all()
+    pos = K.tc_k_step(acc.abs(), a.abs(), w.abs())
+    assert (pos.double() <= acc.double().abs() + a.double().abs()
+            @ w.double().abs()).all()
+
+
+@pytest.mark.parametrize("kw", [SMALL, H96], ids=["small", "h96_to_128"])
+def test_tensor_core_split_reference_stays_within_the_gate(kw):
+    """The split arithmetic with the tensor cores' sums (the model the card
+    reproduces) against the f32 plain version: within the same 5e-5 as the
+    f32-summed split, and not equal to that split (the sums are cut)."""
+    packed, pe = _packed(kw, 0.05), _pe(256)
+    ref = K.sdf_mlp_reference(packed, pe)
+    tc = K.sdf_mlp_split_reference(packed, pe, "tensor_core")
+    split = K.sdf_mlp_split_reference(packed, pe)
+    assert tc.shape == (256,)
+    assert (tc - ref).abs().max().item() <= 5e-5
+    assert not torch.equal(tc, split)
+    with pytest.raises(ValueError):
+        K.sdf_mlp_split_reference(packed, pe, "f64")
