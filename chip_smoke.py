@@ -3,7 +3,8 @@ holds each against its plain PyTorch version, drives the two trace
 configurations of the main path (phase-B training steps of the full-size
 model at the bench shapes, then an eval render) through them, trains a
 DTU-sized scene directory end to end through the training CLI, evaluates
-the checkpoint through the eval CLI, and prints what it measured.
+the checkpoint through the eval CLI, does both again with camera
+optimisation, trims the mesh, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -55,8 +56,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   beside its plain version and the library chain; prints
                   the mesh's distance to the scene's sphere of radius 0.5
                   from the kernel's 512^3 grid and from the plain field's
-Every kernel count is set to 0 just before each of phases 3-8 and read just
-after it. The line before the last is a JSON object listing each kernel;
+  9. cams         gives phase 7's scene directory initial cameras 2 degrees
+                  and 1% of their distance off (cameras_linear_init.npz) and
+                  trains it through the training CLI with --train_cameras
+                  (epochs 0..3: phases A, B, C); gates finite losses,
+                  sdf_mlp in every epoch and no other kernel, poses that
+                  moved and are finite, moments and moves only on rows a
+                  batch drew, and the last checkpoint's camera state
+                  restored equal; prints ms/step per phase beside phase 7's
+  10. eval_cams   the eval CLI with --eval_cameras on phase 9's last
+                  checkpoint (--pallas --resolution 512, no rendering):
+                  cameras.txt, finite errors, only sdf_mlp launched; prints
+                  the initial and the optimised cameras' errors. Then the
+                  trimming CLI (--thresh auto, then 15) on phase 8's 512^3
+                  mesh, each native cut held to scipy's max-flow on the same
+                  graph: equal flow values and faces removed
+Every kernel count is set to 0 just before each of phases 3-10 and read
+just after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
 """
@@ -110,6 +126,18 @@ EVAL_RES = 512
 EVAL_ARGS = ("--pallas", "--resolution", str(EVAL_RES), "--eval_rendering")
 CHECK_RES = 128
 SPHERE_R = 0.5
+# the camera phases: phase 7's scene directory given initial cameras
+# CAMS_NOISE (degrees, share of the distance) off the true ones, trained
+# through epochs 0..CAMS_EPOCHS (phases A, B, C, C) with --train_cameras,
+# then scored with --eval_cameras; the trimming runs on phase 8's mesh
+CAMS_NOISE = (2.0, 0.01)
+CAMS_EPOCHS = 3
+CAMS_ARGS = ("--pallas", "--allow_random_features", "--train_cameras",
+             "--nepoch", str(CAMS_EPOCHS), "--batch_size", str(B),
+             "--num_pixels", str(P))
+CAMS_EVAL_ARGS = ("--pallas", "--eval_cameras", "--resolution",
+                  str(EVAL_RES))
+TRIM_THRESHOLDS = ("auto", "15")
 # resumed epochs' losses against the first run's, relative: the card's
 # gradient scatters use atomics, so the two runs part by rounding (5.6e-5
 # measured on an H100 at this size)
@@ -738,7 +766,8 @@ def phase_times(rows, n_rays):
 
 def cli_phase(tmp):
     """Phase 7: the training CLI on a DTU-sized scene directory under
-    ``tmp``, then its resume. Returns the experiments folder."""
+    ``tmp``, then its resume. Returns the scene directory, the experiments
+    folder and the first run's ms/step per phase."""
     import torch
     from mvsdf_tpu_torch.data.synthetic import write_scene_dir
     torch.cuda.reset_peak_memory_stats()
@@ -809,7 +838,8 @@ def cli_phase(tmp):
         raise AssertionError("the resumed run does not repeat the first")
     log(f"[cli] peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return os.path.join(tmp, "exps")
+    return {"data_dir": data_dir, "exps": os.path.join(tmp, "exps"),
+            "times": phase_times(rows, B * P)}
 
 
 def sphere_distance(verts):
@@ -999,7 +1029,231 @@ def eval_phase(tmp, exps, dev):
         raise AssertionError("no trained surface to measure")
 
 
+def cams_phase(tmp, data_dir, cli_times):
+    """Phase 9: the training CLI with --train_cameras on phase 7's scene
+    directory, given initial cameras CAMS_NOISE off the true ones. Returns
+    its experiments folder."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.data.synthetic import write_pose_init
+    from mvsdf_tpu_torch.train import checkpoints as ckpt
+    from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
+    from mvsdf_tpu_torch.train.device_data import DeviceSceneCache
+    from mvsdf_tpu_torch.train.step import init_train_state
+    write_pose_init(data_dir, *CAMS_NOISE)
+    exps = os.path.join(tmp, "exps_cams")
+    argv = ["--data_dir", data_dir, "--exps_folder", exps, "--expname",
+            "cams", *CAMS_ARGS]
+    drawn = []                  # each step's image indices, on the device
+    gather = DeviceSceneCache.gather
+
+    def recorded(self, indices, sel):
+        drawn.append(indices)
+        return gather(self, indices, sel)
+
+    tee = Tee(sys.stdout)
+    launches = []
+    DeviceSceneCache.gather = recorded
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            trainer = train_cli(argv, launches)
+    finally:
+        DeviceSceneCache.gather = gather
+    wall = time.perf_counter() - t0
+    rows = metric_rows(trainer)
+    epochs = list(range(CAMS_EPOCHS + 1))
+    sched = trainer.cfg.schedule
+    phases = [r["phase"] for r in rows]
+    if [r["step"] for r in rows] != epochs or phases != [
+            sched.phase_index(e / CAMS_EPOCHS) for e in epochs] or not all(
+                np.isfinite(r[k]) for r in rows for k in LOSSES):
+        raise AssertionError(f"camera run's metric rows {rows}")
+    if min(e["sdf_mlp"] for e in launches) == 0 or any(
+            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
+                                             "sphere_march")):
+        raise AssertionError(f"kernel launches by epoch {launches}")
+    if "plot failed" in "".join(tee.text):
+        raise AssertionError("a mesh snapshot failed")
+    st = trainer.state
+    n = trainer.scene.n_images
+    pv0 = torch.from_numpy(pose_vecs_from_matrices(trainer.scene.pose_init))
+    pv = st.pose_vecs.cpu()
+    moved = (pv - pv0).abs().amax(1)
+    seen = torch.zeros(n, dtype=torch.bool)
+    seen[torch.cat(drawn).cpu()] = True
+    m_rows = (st.cam_opt.m.cpu() != 0).any(1)
+    log(f"[cams] {len(drawn)} steps drew {int(seen.sum())} of {n} images; "
+        f"poses moved by max|d| {moved.max().item():.3e} (mean "
+        f"{moved.mean().item():.3e}), {int((moved > 0).sum())} rows moved, "
+        f"{int(m_rows.sum())} rows with nonzero moments, SparseAdam step "
+        f"{int(st.cam_opt.step)}; sdf_mlp launches by epoch "
+        f"{[e['sdf_mlp'] for e in launches]}, the other kernels none")
+    if not torch.isfinite(pv).all() or moved.max() == 0 or \
+            (m_rows & ~seen).any() or (moved[~seen] > 0).any():
+        raise AssertionError("the poses did not move, are not finite, or "
+                             "moved on rows no batch drew")
+    # the last checkpoint's camera state, restored into a fresh state
+    fresh = init_train_state(trainer.cfg, seed=trainer.cfg.train.seed,
+                             device=trainer.device,
+                             pose_init=trainer.scene.pose_init)
+    ckpt.restore_checkpoint(trainer.ckpt_dir, CAMS_EPOCHS, fresh)
+    same = [torch.equal(getattr(fresh.cam_opt, k), getattr(st.cam_opt, k))
+            for k in ("m", "v", "step")]
+    same.append(torch.equal(fresh.pose_vecs, st.pose_vecs))
+    log(f"[cams] restored epoch {CAMS_EPOCHS}'s camera state (m, v, step, "
+        f"pose_vecs): {'equal to the saved' if all(same) else same}")
+    if not all(same):
+        raise AssertionError("restored camera state differs from the saved")
+    sc = trainer.scene
+    log(f"[cams] run: {wall:.1f} s in the CLI; scene load "
+        f"{sc.timings['load_s']:.2f} s, FeatExt "
+        f"{sc.timings['featext_s'] * 1e3:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for name, (ms, rays, each) in phase_times(rows, B * P).items():
+        ref = cli_times.get(name)
+        log(f"[cams] phase {name}: {ms:.1f} ms/step, {rays:.1f} rays/s "
+            f"(epochs' {[round(x, 1) for x in each]}); phase 7 without "
+            f"cameras: " + (f"{ref[0]:.1f} ms/step" if ref else "none"))
+    return exps
+
+
+def error_summary(acc):
+    """(R error mean, t error mean, R median, t median) of a
+    ``camera_accuracy`` dict, as the eval CLI's CAMERAS EVALUATION line
+    reports them."""
+    import numpy as np
+    e_R, e_t = acc["R_errors_deg"], acc["t_errors"]
+    return (float(e_R.mean()), float(e_t.mean()), float(np.median(e_R)),
+            float(np.median(e_t)))
+
+
+def initial_camera_errors(data_dir):
+    """The scene's initial cameras (cameras_linear_init.npz, in the
+    training frame), scored against the ground truth as the eval CLI
+    scores the optimised ones: through their 7-d rows."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.eval.cameras import camera_accuracy
+    from mvsdf_tpu_torch.geometry.cameras import (decompose_projection,
+                                                  quat_to_rot)
+    from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
+
+    def poses(name, scaled):
+        cams = np.load(os.path.join(data_dir, name))
+        n = sum(k.startswith("world_mat_") for k in cams.files)
+        return np.stack([decompose_projection(
+            (cams[f"world_mat_{i}"] @ cams[f"scale_mat_{i}"] if scaled
+             else cams[f"world_mat_{i}"])[:3, :4])[1] for i in range(n)])
+
+    pv = pose_vecs_from_matrices(poses("cameras_linear_init.npz", True))
+    R = quat_to_rot(torch.from_numpy(pv[:, :4])).numpy()
+    gt = poses("cameras_hd.npz", False)
+    return error_summary(camera_accuracy(R, pv[:, 4:].astype(np.float64),
+                                         gt[:, :3, :3], gt[:, :3, 3]))
+
+
+def eval_cams_phase(tmp, data_dir, exps, dev):
+    """Phase 10, first half: the eval CLI with --eval_cameras on phase 9's
+    last checkpoint."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.eval import cli as eval_cli
+    evals = os.path.join(tmp, "evals_cams")
+    argv = ["--data_dir", data_dir, "--exps_folder", exps, "--expname",
+            "cams", "--evals_folder", evals, *CAMS_EVAL_ARGS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    result = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    evaldir = os.path.join(evals, "cams")
+    acc = result.cameras
+    opt = error_summary(acc)
+    init = initial_camera_errors(data_dir)
+    t = result.timings
+    log(f"[eval_cams] the eval CLI: {wall:.1f} s; epoch {result.epoch}; "
+        f"grid {t['grid_s']:.3f} s, triangulation {t['triangulate_s']:.3f} "
+        f"s; mesh in the ground-truth frame {len(result.verts)} vertices "
+        f"{len(result.faces)} faces; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"[eval_cams] cameras against the ground truth, R error mean / t "
+        f"error mean / R median / t median: initial "
+        f"{' / '.join(f'{x:.6f}' for x in init)}; optimised "
+        f"{' / '.join(f'{x:.6f}' for x in opt)}; similarity scale "
+        f"{acc['scale']:.6f}; R error mean "
+        f"{'fell' if opt[0] < init[0] else 'did not fall'}, t error mean "
+        f"{'fell' if opt[1] < init[1] else 'did not fall'}")
+    want = ["cameras.txt", f"surface_world_coordinates_{result.epoch}.obj",
+            f"scene_{result.epoch}.html"]
+    missing = [f for f in want if not os.path.isfile(os.path.join(evaldir,
+                                                                  f))]
+    if missing or not np.isfinite(opt + init).all() or \
+            result.epoch != CAMS_EPOCHS or len(result.faces) == 0:
+        raise AssertionError(f"camera eval: missing {missing}, errors "
+                             f"{opt} from {init}, epoch {result.epoch}")
+    if launches["sdf_mlp"] == 0 or any(
+            launches[k] for k in ("sdf_mlp_xyz", "secant", "sphere_march")):
+        raise AssertionError(f"camera eval launches {launches}")
+
+
+def trim_phase(tmp, obj):
+    """Phase 10, second half: the trimming CLI on ``obj`` at each of
+    TRIM_THRESHOLDS; each native cut held to the plain version (scipy's
+    max-flow) on the same graph: equal flow values, equal faces
+    removed."""
+    import numpy as np
+    from mvsdf_tpu_torch.meshcut import cli as trim_cli
+    from mvsdf_tpu_torch.meshcut import cut
+    calls, adj_s = [], []
+    maxflow, adjacency = cut.maxflow_cut, cut.face_adjacency_edges
+
+    def timed_maxflow(labels, edges):
+        t0 = time.perf_counter()
+        flow, side = maxflow(labels, edges)
+        calls.append((labels, edges, flow, side, time.perf_counter() - t0))
+        return flow, side
+
+    def timed_adjacency(faces):
+        t0 = time.perf_counter()
+        out = adjacency(faces)
+        adj_s.append(time.perf_counter() - t0)
+        return out
+
+    cut.maxflow_cut, cut.face_adjacency_edges = timed_maxflow, \
+        timed_adjacency
+    try:
+        for thresh in TRIM_THRESHOLDS:
+            out = os.path.join(tmp, f"trimmed_{thresh}.obj")
+            tee = Tee(sys.stdout)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                trim_cli.main([obj, out, "--thresh", thresh])
+            wall = time.perf_counter() - t0
+            labels, edges, flow, side, cut_s = calls[-1]
+            t0 = time.perf_counter()
+            ref_flow, ref_side = cut.maxflow_cut_reference(labels, edges)
+            scipy_s = time.perf_counter() - t0
+            same = ref_flow == flow and np.array_equal(ref_side, side)
+            log(f"[trim] --thresh {thresh}: {wall:.2f} s in the CLI on "
+                f"{len(labels)} faces ({int(labels.sum())} source-linked), "
+                f"{len(edges)} adjacency edges in {adj_s[-1]:.3f} s; native "
+                f"cut {cut_s:.3f} s, flow {flow}, {int(side.sum())} faces "
+                f"removed; scipy's max-flow on the same graph {scipy_s:.3f} "
+                f"s, flow {ref_flow}, {int(ref_side.sum())} removed: "
+                f"{'equal' if same else 'DIFFERENT'}")
+            if not same or not os.path.isfile(out):
+                raise AssertionError(f"the native cut at --thresh {thresh} "
+                                     f"disagrees with scipy's")
+    finally:
+        cut.maxflow_cut, cut.face_adjacency_edges = maxflow, adjacency
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1071,11 +1325,19 @@ def main():
                          else f_launches)[e["name"]]
 
     # 7-8. the training CLI on a DTU-sized scene directory, then the eval
-    # CLI on its checkpoint
+    # CLI on its checkpoint; 9-10. the same with camera optimisation, then
+    # the trimming of phase 8's mesh
     with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
-        exps = cli_phase(tmp)
-        eval_phase(tmp, exps, dev)
+        run = cli_phase(tmp)
+        eval_phase(tmp, run["exps"], dev)
+        exps_cams = cams_phase(tmp, run["data_dir"], run["times"])
+        eval_cams_phase(tmp, run["data_dir"], exps_cams, dev)
+        trim_phase(tmp, os.path.join(
+            tmp, "evals", "smoke",
+            f"surface_world_coordinates_{CLI_EPOCHS}.obj"))
 
+    log(f"[total] {time.perf_counter() - t_start:.1f} s from the start "
+        f"of main")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

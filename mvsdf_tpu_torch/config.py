@@ -158,7 +158,8 @@ class TrainConfig:
     sched_factor: float = 0.1
     plot_freq: float = 1.0 / 12.0
     seed: int = 0
-    # Camera-pose optimization is not ported yet: True raises.
+    # Per-image camera poses trained with the field (train/cameras_opt.py),
+    # stepped by SparseAdam at the constant learning_rate_cam.
     train_cameras: bool = False
     learning_rate_cam: float = 1e-4
     fused_dispatch: bool = True     # no effect here

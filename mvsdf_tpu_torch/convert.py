@@ -1,6 +1,7 @@
 """Parameter conversion between the JAX package's params pytrees and the
-port's state dicts: the SDF and radiance MLPs both ways, and the frozen
-FeatExt CNN (``featext_params_from_jax``).
+port's state dicts: the SDF and radiance MLPs both ways, the frozen
+FeatExt CNN (``featext_params_from_jax``), and the camera-optimisation
+state (``cam_state_from_jax``).
 
 The JAX pytree is ``{"implicit": [layer, ...], "render": [layer, ...]}``
 with each layer ``{"v": (d_in, d_out), "g": (d_out,), "b": (d_out,)}`` (or
@@ -40,6 +41,18 @@ def params_to_jax(state_dict) -> dict:
             layers.append({})
         layers[int(l)][k] = t.detach().cpu().numpy()
     return out
+
+
+def cam_state_from_jax(pose_vecs, cam_opt, device="cpu"):
+    """The JAX package's ``TrainState.pose_vecs`` (n, 7) and
+    ``cam_opt`` (``SparseAdamState``: m, v, step), as numpy arrays or
+    anything ``np.asarray`` takes -> (pose_vecs, the port's
+    ``SparseAdamState``), tensors on ``device``."""
+    from .train.cameras_opt import SparseAdamState
+    t = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt)).to(device)
+    m, v, step = cam_opt
+    return t(pose_vecs, np.float32), SparseAdamState(
+        m=t(m, np.float32), v=t(v, np.float32), step=t(step, np.int32))
 
 
 def _bn_from_jax(p, prefix):

@@ -7,6 +7,8 @@ Directory layout (ref BYOD.md / vismvsnet2mvsdf):
     <data_dir>/image_hd/*.png        RGB in [-1, 1] after load
     <data_dir>/mask_hd/*.png         object masks
     <data_dir>/cameras_hd.npz        world_mat_i (K[R|t]) + scale_mat_i
+    <data_dir>/cameras_linear_init.npz  optional initial cameras for
+                                     camera optimisation (same keys)
     <data_dir>/depth/%03d.pfm        MVS depth maps
     <data_dir>/../pair.txt           view-selection graph
     <data_dir>/../cam_%08d_flow3.txt MVS cameras (2x4x4)
@@ -215,6 +217,17 @@ class SceneData:
     def get_scale_mat(self) -> np.ndarray:
         """The unit-sphere -> world map of the scene (view 0's scale_mat)."""
         return self.scale_mats[0]
+
+    def get_gt_pose(self, scaled: bool = False) -> np.ndarray:
+        """(n, 4, 4) camera-to-world poses decomposed from the world
+        matrices, without the unit-sphere normalisation unless ``scaled``
+        (ref scene_dataset.py:253-268): the ground truth that optimised
+        cameras are compared with under --eval_cameras."""
+        poses = np.zeros((self.n_images, 4, 4), np.float32)
+        for i, (w, s) in enumerate(zip(self.world_mats, self.scale_mats)):
+            P = (w @ s) if scaled else w
+            _, poses[i] = decompose_projection(P[:3, :4])
+        return poses
 
     def change_sampling_idx(self, n: int, rng: np.random.Generator):
         """One random pixel subset per epoch shared by all images

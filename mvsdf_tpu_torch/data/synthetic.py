@@ -7,7 +7,9 @@ the origin, a unit-scale scene (size=2, center=0), depth maps of a sphere.
   packages the same data; it is also the scene of the JAX package's
   ``bench.py``.
 - ``write_scene_dir``: a scene directory on disk in the reference layout,
-  with rendered images, for ``data/scene.SceneData`` and the training CLI.
+  with rendered images, for ``data/scene.SceneData`` and the training CLI;
+  ``write_pose_init`` adds perturbed initial cameras to one, for camera
+  optimisation.
 """
 from __future__ import annotations
 
@@ -169,8 +171,44 @@ def render_ring_view(extr, K, hw, cam_pos, sphere_radius):
             z.astype(np.float32).reshape(H, W))
 
 
+def _rotation(axis, angle):
+    """Rodrigues: the rotation by ``angle`` radians about unit ``axis``."""
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def write_pose_init(data_dir, deg, frac, seed=0):
+    """Writes ``cameras_linear_init.npz`` beside a scene directory's
+    ``cameras_hd.npz``, with the keys and layout the scene loaders read
+    (``world_mat_i``, ``scale_mat_i``): each ground-truth camera turned by
+    ``deg`` degrees about a random axis, and its centre moved by ``frac``
+    times its distance from the world origin in a random direction, drawn
+    from ``np.random.default_rng(seed)``. Returns the file's path."""
+    from ..geometry.cameras import decompose_projection
+    cams = np.load(os.path.join(data_dir, "cameras_hd.npz"))
+    n = sum(k.startswith("world_mat_") for k in cams.files)
+    rng = np.random.default_rng(seed)
+    unit = lambda v: v / np.linalg.norm(v)
+    out = {}
+    for i in range(n):
+        K, pose = decompose_projection(cams[f"world_mat_{i}"][:3, :4])
+        R = _rotation(unit(rng.normal(size=3)), np.radians(deg)) @ \
+            pose[:3, :3]
+        c = pose[:3, 3] + frac * np.linalg.norm(pose[:3, 3]) * unit(
+            rng.normal(size=3))
+        P = np.eye(4)
+        P[:3, :3] = K[:3, :3] @ R.T
+        P[:3, 3] = -K[:3, :3] @ R.T @ c
+        out[f"world_mat_{i}"] = P.astype(np.float32)
+        out[f"scale_mat_{i}"] = cams[f"scale_mat_{i}"]
+    path = os.path.join(data_dir, "cameras_linear_init.npz")
+    np.savez(path, **out)
+    return path
+
+
 def write_scene_dir(root, n_images=3, img_hw=32, depth_hw=16,
-                    sphere_radius=0.5):
+                    sphere_radius=0.5, pose_noise=None):
     """Writes a scene directory in the reference layout under ``root``
     (``scene/image_hd/``, ``scene/mask_hd/``, ``scene/depth/*.pfm``,
     ``scene/cameras_hd.npz``, ``pair.txt``, ``cam_*_flow3.txt``) and returns
@@ -178,6 +216,8 @@ def write_scene_dir(root, n_images=3, img_hw=32, depth_hw=16,
     of ``sphere_radius``; the images are renders of it, the masks its
     silhouette, the depth maps its depth at ``depth_hw``. Sizes are ints
     (square) or (H, W). Each view's source views are its ring neighbours.
+    ``pose_noise=(deg, frac)`` also writes perturbed initial cameras
+    (``write_pose_init``).
     """
     from . import formats
     from .png import write_png
@@ -227,4 +267,6 @@ def write_scene_dir(root, n_images=3, img_hw=32, depth_hw=16,
                         "score": [10.0 - k for k in range(len(others))]}
     np.savez(os.path.join(data_dir, "cameras_hd.npz"), **cam_npz)
     formats.write_pair(os.path.join(root, "pair.txt"), pair)
+    if pose_noise is not None:
+        write_pose_init(data_dir, *pose_noise)
     return data_dir

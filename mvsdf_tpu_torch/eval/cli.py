@@ -3,7 +3,7 @@ files and printed lines): mesh extraction, optional rendering PSNR and DTU
 chamfer from a checkpoint of the training CLI.
 
     python -m mvsdf_tpu_torch.eval.cli --data_dir DATA --expname NAME \\
-        [--resolution 512] [--eval_rendering] [--pallas]
+        [--resolution 512] [--eval_rendering] [--pallas] [--eval_cameras]
 
 Runs on the GPU unless ``--platform cpu`` is given; without a GPU and
 without that flag it raises. Its matmuls run in full f32 (TF32 off): the
@@ -12,8 +12,10 @@ through the hand-written SDF-MLP kernel (``sdf_mlp``, the positional
 encoding computed outside it) and the rendering paths trace through it
 too; without it the plain field serves both, as in the JAX package. The
 surface is triangulated by the native C++ triangulator, which raises if it
-cannot be built or run. ``main`` returns what it measured (see
-``EvalResult``).
+cannot be built or run. ``--eval_cameras`` scores a ``--train_cameras``
+checkpoint's poses against the ground truth, extracts the mesh into the
+ground-truth frame through the cameras' similarity, and renders with the
+optimised poses. ``main`` returns what it measured (see ``EvalResult``).
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ CHUNK_VERTS = 1 << 20   # vertices a colour evaluation of the field takes
 class EvalResult:
     """What ``main`` produced: the checkpoint's epoch, the SDF grid the
     mesh was extracted from, the mesh (world coordinates, after the
-    component cleanup) and its colours, the per-view PSNRs, and wall times
-    in seconds (``grid_s``, ``triangulate_s``, ``render_s`` a view)."""
+    component cleanup) and its colours, the per-view PSNRs, wall times in
+    seconds (``grid_s``, ``triangulate_s``, ``render_s`` a view), and under
+    --eval_cameras ``eval.cameras.camera_accuracy``'s dict."""
     epoch: int
     grid: Optional[np.ndarray] = None
     verts: Optional[np.ndarray] = None
@@ -42,6 +45,7 @@ class EvalResult:
     colors: Optional[np.ndarray] = None
     psnrs: List[float] = dataclasses.field(default_factory=list)
     timings: dict = dataclasses.field(default_factory=dict)
+    cameras: Optional[dict] = None
 
 
 def parse_args(argv=None):
@@ -70,8 +74,11 @@ def parse_args(argv=None):
                          "evaluation and for the ray trace in the rendering "
                          "paths")
     ap.add_argument("--eval_cameras", action="store_true",
-                    help="evaluate optimized camera poses against GT (needs "
-                         "camera optimisation, not ported yet: raises)")
+                    help="evaluate optimized camera poses against GT "
+                         "(requires a --train_cameras checkpoint; the "
+                         "reference's --eval_cameras, eval.py:26-104): "
+                         "prints R/t errors, aligns the mesh by the "
+                         "camera similarity, renders with optimized poses")
     ap.add_argument("--keep_all_components", action="store_true",
                     help="skip the biggest-connected-component cleanup "
                          "(the reference always keeps only the biggest, "
@@ -143,10 +150,6 @@ def main(argv=None) -> EvalResult:
     if args.platform != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --platform "
                            "cpu to run on the CPU")
-    if args.eval_cameras:
-        raise NotImplementedError(
-            "--eval_cameras: camera optimisation (train/cameras_opt.py) "
-            "is not ported yet")
     device = torch.device("cpu" if args.platform == "cpu" else "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -197,9 +200,42 @@ def main(argv=None) -> EvalResult:
 
     scene = SceneData(args.data_dir, load_features=False, device=device)
 
+    # --- camera accuracy + mesh alignment (ref eval.py:89-106) -----------
+    cams_transformation = None
+    opt_poses = None
+    if args.eval_cameras:
+        if tree.get("pose_vecs") is None:
+            raise ValueError("--eval_cameras needs a checkpoint trained "
+                             "with --train_cameras (no pose_vecs found)")
+        from ..geometry.cameras import quat_to_rot
+        from .cameras import camera_accuracy
+        opt_poses = tree["pose_vecs"]          # (n, 7) rows, on the device
+        pv = opt_poses.detach().cpu()
+        pred_Rs = quat_to_rot(pv[:, :4]).numpy()
+        pred_ts = pv[:, 4:].numpy().astype(np.float64)
+        gt_pose = scene.get_gt_pose()
+        acc = camera_accuracy(pred_Rs, pred_ts,
+                              gt_pose[:, :3, :3], gt_pose[:, :3, 3])
+        result.cameras = acc
+        msg = ("CAMERAS EVALUATION: R error mean = %.2f ; t error mean = "
+               "%.2f ; R error median = %.2f ; t error median = %.2f" % (
+                   acc["R_errors_deg"].mean(), acc["t_errors"].mean(),
+                   np.median(acc["R_errors_deg"]),
+                   np.median(acc["t_errors"])))
+        print(msg)
+        with open(os.path.join(evaldir, "cameras.txt"), "w") as f:
+            f.write(msg + "\n")
+        cams_transformation = np.eye(4)
+        cams_transformation[:3, :3] = acc["scale"] * acc["R_opt"]
+        cams_transformation[:3, 3] = acc["t_opt"]
+
     # --- mesh extraction (ref eval.py:109-125) ---------------------------
     if not args.render_mode:
-        world = scene.get_scale_mat()
+        # with optimised cameras the mesh lives in the training frame: the
+        # cameras' similarity maps it to the ground truth's (ref
+        # eval.py:116-123)
+        world = (cams_transformation if cams_transformation is not None
+                 else scene.get_scale_mat())
         t0 = time.perf_counter()
         vol = eval_sdf_grid(grid_sdf_fn(net, args.pallas),
                             resolution=args.resolution, device=device)
@@ -279,11 +315,13 @@ def main(argv=None) -> EvalResult:
         result.timings["render_s"] = []
         for idx in range(scene.n_images):
             t0 = time.perf_counter()
+            pose = (opt_poses[idx:idx + 1] if opt_poses is not None
+                    else torch.from_numpy(scene.poses[idx:idx + 1]).to(
+                        device))
             rgb = render_view(
                 model, net, uv,
                 torch.from_numpy(scene.intrinsics[idx:idx + 1]).to(device),
-                torch.from_numpy(scene.poses[idx:idx + 1]).to(device),
-                torch.from_numpy(scene.masks[idx]).to(device), chunk)
+                pose, torch.from_numpy(scene.masks[idx]).to(device), chunk)
             result.timings["render_s"].append(time.perf_counter() - t0)
             rgb = (rgb.reshape(H, W, 3) + 1) / 2
             write_png(os.path.join(images_dir, f"eval_{idx:03d}.png"),

@@ -321,8 +321,9 @@ def render_view(model, net, uv: torch.Tensor, intr: torch.Tensor,
                 pose: torch.Tensor, mask: torch.Tensor,
                 chunk: int) -> np.ndarray:
     """One view's rays through the eval-mode renderer in fixed chunks of
-    ``chunk`` rays (the tail padded with ray 0): uv (HW, 2), intr and pose
-    (1, 4, 4), mask (HW,) on the device -> rgb (HW, 3) in [-1, 1]."""
+    ``chunk`` rays (the tail padded with ray 0): uv (HW, 2), intr (1, 4,
+    4), pose (1, 4, 4) or a (1, 7) quaternion + translation row, mask (HW,)
+    on the device -> rgb (HW, 3) in [-1, 1]."""
     total = uv.shape[0]
     n_chunks = -(-total // chunk)
     sel_all = torch.cat([

@@ -8,10 +8,11 @@ beside this file, named by a hash of every CUDA file under ``csrc/``
 edit to any of them, or to the flags, builds a new one. The build runs at
 the first launch of any kernel, never at import.
 
-A ``csrc/*.cpp`` file is host code (the mesh triangulator): ``host_library``
-compiles it alone with the system C++ compiler into its own library in
-``_build/``, named by a hash of the source and the flags, at first use. It
-needs no CUDA toolkit, so it builds wherever ``c++`` is.
+A ``csrc/*.cpp`` file is host code (the mesh triangulator, the mesh
+trimming's max-flow): ``host_library`` compiles it alone with the system
+C++ compiler into its own library in ``_build/``, named by a hash of the
+source and the flags, at first use. It needs no CUDA toolkit, so it builds
+wherever ``c++`` is.
 """
 from __future__ import annotations
 

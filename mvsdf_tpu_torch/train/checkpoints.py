@@ -3,7 +3,9 @@ files in place of orbax).
 
 A step directory ``step_{N}/`` holds
 - ``state.pt``: the network's and Adam's state dicts, the learning-rate
-  scheduler's state and the epoch;
+  scheduler's state and the epoch, and with camera optimisation the
+  (n, 7) ``pose_vecs`` and their SparseAdam state (``cam_opt``: ``m``,
+  ``v``, ``step``, the JAX package's layout);
 - ``rng.json``: the host sampling RNG's state (``np_rng``, the JSON layout
   of the JAX package) and the per-step torch generator's state with its
   device type, so a resumed run draws what an unbroken one would.
@@ -22,6 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .cameras_opt import SparseAdamState
+
 
 def step_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
@@ -35,10 +39,17 @@ def save_checkpoint(ckpt_dir: str, step: int, state, epoch: int,
     tmp = f"{path}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({"net": state.net.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "epoch": int(epoch)}, os.path.join(tmp, "state.pt"))
+    tree = {"net": state.net.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict(),
+            "epoch": int(epoch)}
+    if state.pose_vecs is not None:
+        # the camera state in the same step (the reference saves it to
+        # files of its own, idr_train.py:188-199)
+        opt = state.cam_opt
+        tree["pose_vecs"] = state.pose_vecs
+        tree["cam_opt"] = {"m": opt.m, "v": opt.v, "step": opt.step}
+    torch.save(tree, os.path.join(tmp, "state.pt"))
     blob = {"np_rng": rng_state}
     if generator is not None:
         blob["torch_generator"] = generator.get_state().numpy()
@@ -91,12 +102,19 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int], map_location="cpu"):
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int], state):
     """Loads a step into ``state`` (TrainState, in place, onto the device of
-    its network). Returns (epoch, rng_state)."""
+    its network). A state with cameras takes the checkpoint's camera state,
+    or None where the checkpoint holds none (as the JAX package's restore
+    returns it), so the caller can raise its own error. Returns (epoch,
+    rng_state)."""
     dev = next(state.net.parameters()).device
     tree, rng_state = load_checkpoint(ckpt_dir, step, map_location=dev)
     state.net.load_state_dict(tree["net"])
     state.optimizer.load_state_dict(tree["optimizer"])
     state.scheduler.load_state_dict(tree["scheduler"])
+    if state.pose_vecs is not None:
+        state.pose_vecs = tree.get("pose_vecs")
+        state.cam_opt = (SparseAdamState(**tree["cam_opt"])
+                         if "cam_opt" in tree else None)
     return tree["epoch"], rng_state
 
 

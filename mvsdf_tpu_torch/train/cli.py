@@ -38,8 +38,9 @@ def parse_args(argv=None):
                     help="accepted for the JAX CLI's sake; no effect (one "
                          "GPU, no device mesh)")
     ap.add_argument("--train_cameras", action="store_true",
-                    help="jointly optimize per-image camera poses (not "
-                         "ported yet: raises)")
+                    help="jointly optimize per-image camera poses, from the "
+                         "scene's cameras_linear_init.npz (the ground-truth "
+                         "poses without it)")
     ap.add_argument("--matmul_precision", default="default",
                     choices=["default", "tensorfloat32", "highest"],
                     help="f32 matmuls of the supervised path on the GPU: "
@@ -103,10 +104,6 @@ def setup(argv=None):
         raise RuntimeError("no CUDA device is available; pass --platform "
                            "cpu to run on the CPU")
     device = torch.device("cpu" if args.platform == "cpu" else "cuda")
-    if args.train_cameras:
-        raise NotImplementedError(
-            "--train_cameras: camera optimisation (train/cameras_opt.py) is "
-            "not ported yet")
     torch.backends.cuda.matmul.allow_tf32 = args.matmul_precision != "highest"
 
     from ..config import MVSDFConfig, TrainConfig

@@ -6,7 +6,9 @@ features, view-selection graph) goes to the device once, when the trainer
 starts; a step ships only the batch's image indices (B,) and the shared
 pixel subset (P,) as int64 tensors, and the batch is gathered on the
 device. The gather indexes the same source arrays with the same indices as
-``SceneData.get_batch``, so the batch is the same element for element.
+``SceneData.get_batch``, so the batch is the same element for element. Its
+``pose`` is the ground truth; under camera optimisation the training step
+puts the (B, 7) rows of the batch's images in its place.
 """
 from __future__ import annotations
 

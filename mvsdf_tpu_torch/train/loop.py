@@ -15,7 +15,10 @@ its state is checkpointed with the host RNG's. The JAX package's fused
 multi-epoch dispatch (``lax.scan``) has no counterpart: every epoch runs
 the per-epoch path, so ``fused_dispatch`` and ``epochs_per_dispatch`` have
 no effect. Metrics are read once per epoch (the last step's), so the loop
-adds no host sync a step beyond the training step's own.
+adds no host sync a step beyond the training step's own. With
+``train_cameras`` the camera poses start from ``scene.pose_init`` and the
+step trains them; mesh snapshots and the full render keep the
+ground-truth poses (``scene.poses``), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -55,8 +58,11 @@ class Trainer:
         self.log = log_fn
         self.device = resolve_device(device)
         self.steps = {}        # phase_idx -> train step
-        self.state = init_train_state(cfg, seed=cfg.train.seed,
-                                      device=self.device)
+        # the linear-method camera initialisation where the scene has one,
+        # the ground-truth poses otherwise (ref idr_train.py:121-127)
+        self.state = init_train_state(
+            cfg, seed=cfg.train.seed, device=self.device,
+            pose_init=scene.pose_init if cfg.train.train_cameras else None)
         self.rng = np.random.default_rng(cfg.train.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed)
@@ -90,6 +96,10 @@ class Trainer:
         t0 = time.perf_counter()
         epoch, rng_state = ckpt.restore_checkpoint(self.ckpt_dir, step,
                                                    self.state)
+        if self.cfg.train.train_cameras and self.state.pose_vecs is None:
+            raise ValueError(f"the checkpoint of epoch {epoch} holds no "
+                             f"camera state: it was trained without "
+                             f"--train_cameras")
         if rng_state is not None:
             if rng_state.get("np_rng") is not None:
                 self.rng.bit_generator.state = rng_state["np_rng"]

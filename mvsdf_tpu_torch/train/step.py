@@ -6,7 +6,13 @@
   it once per epoch);
 - global grad-norm clip with the scheduled cap (<= 0: no clipping);
 - on a non-finite gradient the update runs with zero gradients
-  (``skip_nonfinite_updates``), as the JAX package does.
+  (``skip_nonfinite_updates``), as the JAX package does;
+- with ``train_cameras``, the batch's poses are the (B, 7) rows
+  ``pose_vecs[indices]``; the loss is differentiated with respect to them
+  too, and the touched rows take a SparseAdam step at the constant
+  ``learning_rate_cam``. As in the JAX package, the clip and the
+  non-finite skip apply to the field's gradients only, so a non-finite
+  batch still moves the poses.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from ..fields.radiance import init_render
 from ..fields.sdf import init_implicit
 from ..rendering.renderer import render_forward
 from ..supervision.losses import total_loss
+from .cameras_opt import (SparseAdamState, init_sparse_adam,
+                          pose_vecs_from_matrices, sparse_adam_step)
 
 GT_KEYS = ("rgb", "depths", "depth_cams", "size", "center", "feat",
            "feat_src", "cam", "src_cams")
@@ -33,6 +41,8 @@ class TrainState:
     net: MVSDFNetwork
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.MultiStepLR
+    pose_vecs: Optional[torch.Tensor] = None    # (n_images, 7) with cameras
+    cam_opt: Optional[SparseAdamState] = None
 
     @property
     def epoch(self) -> int:
@@ -56,17 +66,28 @@ def milestones(cfg: MVSDFConfig) -> List[int]:
     return [int(m * cfg.train.nepochs) for m in cfg.train.sched_milestones]
 
 
-def init_train_state(cfg: MVSDFConfig, seed: int = 0,
-                     device=None) -> TrainState:
-    if cfg.train.train_cameras:
-        raise NotImplementedError("camera optimisation is not ported yet")
+def init_train_state(cfg: MVSDFConfig, seed: int = 0, device=None,
+                     pose_init: Optional[np.ndarray] = None) -> TrainState:
+    """pose_init, (n_images, 4, 4) camera-to-world or (n_images, 7) rows,
+    seeds the camera poses when cfg.train.train_cameras (required
+    then)."""
     net = init_params(cfg, seed, device)
     opt = torch.optim.Adam(net.parameters(),
                            lr=cfg.train.learning_rate * cfg.train.batch_size,
                            betas=(0.9, 0.999), eps=1e-8)
     sched = torch.optim.lr_scheduler.MultiStepLR(
         opt, milestones=milestones(cfg), gamma=cfg.train.sched_factor)
-    return TrainState(net, opt, sched)
+    state = TrainState(net, opt, sched)
+    if cfg.train.train_cameras:
+        if pose_init is None:
+            raise ValueError("train_cameras requires pose_init")
+        pv = np.asarray(pose_init, np.float32)
+        if pv.ndim == 3:
+            pv = pose_vecs_from_matrices(pv)
+        state.pose_vecs = torch.from_numpy(pv).to(
+            next(net.parameters()).device)
+        state.cam_opt = init_sparse_adam(state.pose_vecs)
+    return state
 
 
 def advance_epoch(state: TrainState) -> None:
@@ -87,23 +108,34 @@ def _clip_by_global_norm(grads, cap: float):
 def make_train_step(cfg: MVSDFConfig, phase_idx: int):
     """Returns step(state, batch, weights, generator=None, noise=None) ->
     metrics (dict of 0-d tensors). ``batch`` holds the render inputs and
-    the ground truth (GT_KEYS) as tensors on the model's device; ``weights``
-    is ``cfg.schedule.weights(tp)``."""
+    the ground truth (GT_KEYS) as tensors on the model's device, and the
+    images' ``indices`` with cameras; ``weights`` is
+    ``cfg.schedule.weights(tp)``."""
     gates = cfg.schedule.gates_for_phase(phase_idx)
     sched = cfg.schedule
+    cameras = cfg.train.train_cameras
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              weights: Weights, generator: Optional[torch.Generator] = None,
              noise: Optional[dict] = None):
         net = state.net
-        out = render_forward(cfg.model, net, batch, training=True,
+        params = list(net.parameters())
+        inputs = batch
+        if cameras:
+            # the batch images' 7-d poses (ref idr_train.py:263)
+            pose_vecs = state.pose_vecs.detach().requires_grad_(True)
+            inputs = dict(batch, pose=pose_vecs[batch["indices"]])
+            params.append(pose_vecs)
+        out = render_forward(cfg.model, net, inputs, training=True,
                              gates=gates, generator=generator, noise=noise)
         lt = total_loss(out, {k: batch[k] for k in GT_KEYS}, gates, sched,
                         weights)
-        params = list(net.parameters())
         grads = torch.autograd.grad(lt.loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if cameras:
+            params.pop()
+            pose_grads = grads.pop()
         grads, gnorm = _clip_by_global_norm(grads, weights.grad_cap)
         if cfg.train.skip_nonfinite_updates:
             finite = torch.isfinite(gnorm)
@@ -114,6 +146,13 @@ def make_train_step(cfg: MVSDFConfig, phase_idx: int):
         lr = state.optimizer.param_groups[0]["lr"]
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
+        if cameras:
+            touched = torch.zeros(state.pose_vecs.shape[0], dtype=torch.bool,
+                                  device=state.pose_vecs.device)
+            touched[batch["indices"]] = True
+            state.cam_opt, state.pose_vecs = sparse_adam_step(
+                state.cam_opt, state.pose_vecs, pose_grads, touched,
+                cfg.train.learning_rate_cam)
         metrics = {name: getattr(lt, name).detach() for name in lt._fields}
         metrics.update(grad_norm=gnorm.detach(),
                        lr=torch.tensor(lr),

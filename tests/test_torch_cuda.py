@@ -399,3 +399,66 @@ def test_eval_cli_on_the_card(cuda, tmp_path):
         f"eval_{i:03d}.png" for i in range(3)]
     assert len(result.psnrs) == 3 and np.isfinite(result.psnrs).all()
     assert launches[0] > 128 // 8 and launches[1:] == [0, 0, 0], launches
+
+
+@pytest.mark.cuda
+def test_maxflow_builds_and_cuts_on_the_card_machine(cuda, tmp_path):
+    """The mesh trimming's max-flow (host C++) builds through
+    build.build_host on the card's machine, and its cut of a mesh's face
+    graph equals the plain version's (scipy): flow value and faces."""
+    from mvsdf_tpu_torch.meshcut import cut, native
+    from mvsdf_tpu_torch.tracing.kernels import build
+    assert build.build_host(native.SOURCE) == build.host_library_path(
+        native.SOURCE)
+    rng = np.random.default_rng(0)
+    n = 60
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    vid = lambda a, b: a * (n + 1) + b
+    faces = np.concatenate([
+        np.stack([vid(i, j), vid(i + 1, j), vid(i, j + 1)], -1),
+        np.stack([vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)], -1)
+    ]).reshape(-1, 3)
+    labels = rng.uniform(size=len(faces)) < 0.5
+    adj = cut.face_adjacency_edges(faces)
+    edges = np.concatenate([adj, np.full((len(adj), 1), 1)], 1)
+    flow, side = cut.maxflow_cut(labels, edges)
+    ref_flow, ref_side = cut.maxflow_cut_reference(labels, edges)
+    assert flow == ref_flow > 0
+    np.testing.assert_array_equal(side, ref_side)
+
+
+@pytest.mark.cuda
+def test_camera_training_step_on_the_card(cuda):
+    """One phase-B step with train_cameras on the card, the trace through
+    sdf_mlp: the touched poses move and stay finite, the others keep
+    theirs, and the kernel was launched."""
+    from mvsdf_tpu_torch.config import (ModelConfig, MVSDFConfig,
+                                        TrainConfig)
+    from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
+    from mvsdf_tpu_torch.fields.radiance import RenderConfig
+    from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
+    from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
+    cfg = MVSDFConfig(
+        model=ModelConfig(implicit=t_sdf.ImplicitConfig(**SMALL),
+                          render=RenderConfig(feature_vector_size=16,
+                                              dims=(64, 64)),
+                          use_pallas_trace=True),
+        train=TrainConfig(batch_size=2, num_pixels=512, train_cameras=True))
+    sc = make_scene(n_images=2, n_pix=512, feat_ch=16)
+    table = np.concatenate([sc["pose"], sc["pose"]])   # rows 2, 3 unused
+    pv0 = pose_vecs_from_matrices(table)
+    state = init_train_state(cfg, seed=0, device=cuda, pose_init=pv0)
+    batch = scene_to_torch(sc, cuda)
+    batch["indices"] = torch.tensor([1, 0], device=cuda)
+    before = K.sdf_mlp.launches
+    m = make_train_step(cfg, phase_idx=1)(
+        state, batch, cfg.schedule.weights(0.3),
+        torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert K.sdf_mlp.launches > before
+    assert np.isfinite(float(m["loss"]))
+    pv = state.pose_vecs.cpu().numpy()
+    assert np.isfinite(pv).all()
+    assert (np.abs(pv[:2] - pv0[:2]).max(1) > 0).all()
+    np.testing.assert_array_equal(pv[2:], pv0[2:])
+    assert int(state.cam_opt.step) == 1

@@ -335,12 +335,14 @@ def test_mat_loaders_match_jax(env):
 
 
 def test_eval_cli_refusals(env):
-    """--eval_cameras raises (camera optimisation is not ported); without
-    --platform cpu the CLI needs a GPU."""
+    """--eval_cameras on a checkpoint trained without cameras raises a
+    ValueError naming --train_cameras (before camera optimisation was
+    ported it raised NotImplementedError); without --platform cpu the CLI
+    needs a GPU."""
     args = ["--data_dir", env["scene"], "--conf", env["conf"], "--expname",
             "e", "--exps_folder", str(env["root"] / "texps"),
             "--evals_folder", str(env["root"] / "tev_refuse")]
-    with pytest.raises(NotImplementedError, match="cameras_opt"):
+    with pytest.raises(ValueError, match="train_cameras"):
         cli.main(args + ["--platform", "cpu", "--eval_cameras"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

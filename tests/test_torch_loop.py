@@ -15,7 +15,8 @@ radiance 2 x 64), on a 3-5 image scene directory written by
   Resuming after 2 epochs gives parameters, Adam state and metrics
   bit-equal to 4 epochs straight.
 - The CLI's refusals: batch size above the image count, a missing
-  checkpoint, missing FeatExt weights, no GPU without ``--platform cpu``.
+  checkpoint, missing FeatExt weights, no GPU without ``--platform cpu``;
+  ``--train_cameras`` is no longer refused and trains.
 """
 import dataclasses
 import functools
@@ -385,7 +386,11 @@ def test_batch_size_above_the_image_count_raises(env, tmp_path):
 
 def test_cli_refusals(env, tmp_path, monkeypatch):
     """A missing --checkpoint N names the step's path; no FeatExt weights
-    without --allow_random_features; no silent CPU without a GPU."""
+    without --allow_random_features; no silent CPU without a GPU. The
+    --train_cameras that was refused before camera optimisation was ported
+    now trains (in a subprocess: a torch optimizer step): its checkpoint
+    holds finite poses that moved from the scene's (ground-truth) initial
+    ones."""
     exps = tmp_path / "exps"
     args = _cli_args(env, "refuse", exps)
     ck = os.path.join(_exp_dir_after_setup(args), "checkpoints")
@@ -395,8 +400,18 @@ def test_cli_refusals(env, tmp_path, monkeypatch):
     no_random = [a for a in args if a != "--allow_random_features"]
     with pytest.raises(FileNotFoundError, match="MVSDF_VISMVSNET_PT"):
         cli.main(no_random)
-    with pytest.raises(NotImplementedError, match="cameras_opt"):
-        cli.main(args + ["--train_cameras"])
+    out = _run_cli(_cli_args(env, "cams", exps, "--train_cameras",
+                             "--nepoch", "1"))
+    assert "training done" in out
+    tree = torch.load(os.path.join(_exp_dir(exps, "cams"), "checkpoints",
+                                   "step_1", "state.pt"), weights_only=False)
+    start = SceneData(env["scene3"], load_features=False,
+                      device="cpu").pose_init
+    from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
+    moved = (tree["pose_vecs"].numpy() - pose_vecs_from_matrices(start))
+    assert torch.isfinite(tree["pose_vecs"]).all()
+    assert (np.abs(moved).max(1) > 0).all()
+    assert int(tree["cam_opt"]["step"]) == 2
     if not torch.cuda.is_available():
         on_gpu = [a for a in args if a not in ("--platform", "cpu")]
         with pytest.raises(RuntimeError, match="no CUDA device"):
