@@ -4,7 +4,9 @@ configurations of the main path (phase-B training steps of the full-size
 model at the bench shapes, then an eval render) through them, trains a
 DTU-sized scene directory end to end through the training CLI, evaluates
 the checkpoint through the eval CLI, does both again with camera
-optimisation, trims the mesh, and prints what it measured.
+optimisation, trims the mesh, runs the bench step through the fused value
++ gradient, converts a Vis-MVSNet directory and trains on it, and prints
+what it measured.
 
     python3 chip_smoke.py
 
@@ -71,7 +73,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   trimming CLI (--thresh auto, then 15) on phase 8's 512^3
                   mesh, each native cut held to scipy's max-flow on the same
                   graph: equal flow values and faces removed
-Every kernel count is set to 0 just before each of phases 3-10 and read
+  11. fused_grad  bench_phaseB with fused_value_grad (the hand-derived
+                  value + gradient backward): one step's loss terms and
+                  parameter gradients from the seed-0 weights and draws
+                  against the autograd path's, in f32 (the step parity's
+                  tolerances) and in bf16 (twice what the JAX package's two
+                  paths part by on the CPU); then 3 warm-up + 5 timed steps
+                  beside phase 3's ms/step and peak memory, sdf_mlp only
+  12. convert     the JPEG decoder on every committed fixture (equal to
+                  OpenCV's decode) and its ms per megapixel; a Vis-MVSNet
+                  directory made of phase 7's scene (its PNG images, depth
+                  maps, cam files and pair.txt; probability maps at 1/4,
+                  1/2 and 1x with low regions; a binary cut.ply) through
+                  the converter CLI in a subprocess: depth maps equal
+                  phase 7's times the thresholded masks, image_hd equal to
+                  phase 7's images, world_mats within f32 rounding of phase
+                  7's; then the training CLI on the converted scene
+                  (--nepoch 2): finite losses, sdf_mlp only
+Every kernel count is set to 0 just before each of phases 3-12 and read
 just after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
@@ -144,6 +163,36 @@ TRIM_THRESHOLDS = ("auto", "15")
 RESUME_RTOL = 1e-3
 LOSSES = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
           "surf_loss")
+# the fused value + gradient against the autograd path, one step: in f32
+# the step parity's tolerances (loss terms relative, each gradient tensor
+# against its largest entry); in bf16, where the two paths round at
+# different points by design, twice what the JAX package's two paths part
+# by on the CPU (tests/test_torch_fused_grad.py): 1.1e-3 a loss term,
+# and 2.07e-3 the gradient's global relative norm at the seed-0 init
+# weights, the kind this step starts from
+FUSED_LOSS_RTOL, FUSED_GRAD_TOL = 1e-4, 2e-3
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 2.2e-3, 4.2e-3
+# the fused path's bf16 rounding is there: bf16 moves its gradient (global
+# relative norm, bf16 step against f32 step) by ROUNDING_RATIO times what
+# it moves autograd's gradient, within these bounds (0.86 and 1.03 on the
+# CPU; a fused path that rounded nothing reads 0)
+ROUNDING_RATIO = (0.5, 2.0)
+# the convert phase: phase 7's scene as Vis-MVSNet output; probability
+# maps at 1/PROB_DIVS of the depth size, PROB_HIGH with PROB_LOW regions
+# (no bilinear sample of them lies near a threshold of 0.8 or 0.7)
+PROB_DIVS = (4, 2, 1)
+PROB_HIGH, PROB_LOW = 0.95, 0.05
+CUT_HALF = 1.1                 # cut.ply: uniform in [-1.1, 1.1]^3
+CONVERT_EPOCHS = 2
+CONVERT_ARGS = ("--pallas", "--allow_random_features", "--nepoch",
+                str(CONVERT_EPOCHS), "--batch_size", str(B),
+                "--num_pixels", str(P))
+REPO = os.path.dirname(os.path.abspath(__file__))
+JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "jpeg")
+# a DTU-sized JPEG (view 0 of phase 7's scene, written by OpenCV) and the
+# shape and SHA-256 of OpenCV's decode of it
+FULL_VIEW = os.path.join(JPEG_FIXTURES, "view_1600x1200")
+JPEG_REPS = 9
 
 
 def log(msg):
@@ -508,7 +557,8 @@ def zero_counts():
 def train(tag, cfg, batch, gen, dev, every_step, some_step, never):
     """WARMUP + TIMED phase-B steps from the seed-0 weights; every kernel
     in ``every_step`` must launch in each step, each in ``some_step`` in
-    one step at least, none in ``never``. Returns (state, launches)."""
+    one step at least, none in ``never``. Returns (state, launches,
+    (ms/step, peak GiB))."""
     import torch
     from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
     state = init_train_state(cfg, seed=0, device=dev)
@@ -534,9 +584,9 @@ def train(tag, cfg, batch, gen, dev, every_step, some_step, never):
     dt = (time.perf_counter() - t0) / TIMED
     launches = counts()
     m = {k: float(v) for k, v in metrics.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{tag}] {dt * 1e3:.1f} ms/step, {B * P / dt:.1f} rays/s, hit "
-        f"{m['hit_frac']:.4f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{m['hit_frac']:.4f}, peak memory {peak:.2f} GiB")
     log(f"[{tag}] last step: " + json.dumps(
         {k: round(v, 6) for k, v in m.items()}))
     for k in counters():
@@ -552,7 +602,7 @@ def train(tag, cfg, batch, gen, dev, every_step, some_step, never):
     for k in never:
         if launches[k]:
             raise AssertionError(f"{tag} launched {k}")
-    return state, launches
+    return state, launches, (dt * 1e3, peak)
 
 
 def eval_render(tag, cfg, state, batch, must):
@@ -1252,6 +1302,363 @@ def trim_phase(tmp, obj):
         cut.maxflow_cut, cut.face_adjacency_edges = maxflow, adjacency
 
 
+def with_implicit(cfg, **kw):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, implicit=dataclasses.replace(cfg.model.implicit, **kw)))
+
+
+def step_losses_and_grads(cfg, batch, dev):
+    """One phase-B step's loss terms and parameter gradients from the
+    seed-0 weights and the seed-0 generator's draws."""
+    import torch
+    from mvsdf_tpu_torch.rendering.renderer import render_forward
+    from mvsdf_tpu_torch.supervision.losses import total_loss
+    from mvsdf_tpu_torch.train.step import init_params
+    net = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gates = cfg.schedule.gates_for_phase(1)
+    out = render_forward(cfg.model, net, batch, training=True, gates=gates,
+                         generator=gen)
+    lt = total_loss(out, batch, gates, cfg.schedule, cfg.schedule.weights(0.3))
+    named = list(net.named_parameters())
+    grads = torch.autograd.grad(lt.loss, [p for _, p in named],
+                                allow_unused=True)
+    return ({k: float(getattr(lt, k)) for k in lt._fields},
+            {n: torch.zeros_like(p) if g is None else g.detach()
+             for (n, p), g in zip(named, grads)})
+
+
+def path_difference(fused, auto):
+    """(worst relative difference of a loss term, worst gradient tensor's
+    max |difference| over its largest entry and its name, the gradient's
+    global relative norm of the difference) of two
+    ``step_losses_and_grads``."""
+    (lf, gf), (la, ga) = fused, auto
+    loss = max(abs(lf[k] - la[k]) / max(abs(la[k]), 1e-12) for k in la
+               if la[k] != 0)
+    each = {n: ((gf[n] - ga[n]).abs().max() /
+                ga[n].abs().max().clamp_min(1e-12)).item() for n in ga}
+    name = max(each, key=each.get)
+    num = sum(((gf[n] - ga[n]) ** 2).sum().item() for n in ga)
+    den = sum((ga[n] ** 2).sum().item() for n in ga)
+    return loss, each[name], name, (num / den) ** 0.5
+
+
+def fused_grad_phase(batch, gen, dev, autograd_stats):
+    """Phase 11: bench_phaseB with fused_value_grad. Gate 1 (f32) and gate
+    2 (bf16): one step against the autograd path's; gate 3: bf16 moves the
+    fused step's gradient as far as it moves autograd's; then WARMUP +
+    TIMED steps beside phase 3's."""
+    cfg = bench_config()
+    runs = {(fused, bf16): step_losses_and_grads(
+        with_implicit(cfg, fused_value_grad=fused, bf16_activations=bf16),
+        batch, dev) for bf16 in (False, True) for fused in (True, False)}
+    for bf16 in (False, True):
+        loss, worst, name, glob = path_difference(runs[True, bf16],
+                                                  runs[False, bf16])
+        if bf16:
+            ok = loss <= BF16_LOSS_RTOL and glob <= BF16_GRAD_RTOL
+            bounds = (f"tolerances {BF16_LOSS_RTOL:g} a loss term, "
+                      f"{BF16_GRAD_RTOL:g} the global norm")
+        else:
+            ok = loss <= FUSED_LOSS_RTOL and worst <= FUSED_GRAD_TOL
+            bounds = (f"tolerances {FUSED_LOSS_RTOL:g} a loss term, "
+                      f"{FUSED_GRAD_TOL:g} a tensor")
+        log(f"[fused_grad] {'bf16' if bf16 else 'f32'} step, fused against "
+            f"autograd: worst loss term {loss:.3e} relative, worst gradient "
+            f"{worst:.3e} of its largest entry ({name}), global relative "
+            f"norm {glob:.3e} ({bounds}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("the fused value + gradient disagrees with "
+                                 "the autograd path")
+    moved = {fused: path_difference(runs[fused, True], runs[fused, False])
+             for fused in (True, False)}
+    ratio = moved[True][3] / max(moved[False][3], 1e-30)
+    ok = ROUNDING_RATIO[0] <= ratio <= ROUNDING_RATIO[1]
+    _, worst, name, glob = path_difference(runs[False, True],
+                                           runs[True, False])
+    log(f"[fused_grad] bf16 against f32, global relative norm: fused "
+        f"{moved[True][3]:.3e} (worst tensor {moved[True][1]:.3e}, "
+        f"{moved[True][2]}), autograd {moved[False][3]:.3e} (worst "
+        f"{moved[False][1]:.3e}, {moved[False][2]}), ratio {ratio:.3f} "
+        f"(bounds {ROUNDING_RATIO}): {'ok' if ok else 'FAILED'}; control, "
+        f"the f32 fused step against the bf16 autograd step: global "
+        f"{glob:.3e}, worst tensor {worst:.3e} ({name})")
+    if not ok:
+        raise AssertionError("bf16 does not move the fused step's gradient "
+                             "as it moves the autograd step's")
+    _, _, (ms, peak) = train(
+        "fused_grad", with_implicit(cfg, fused_value_grad=True), batch, gen,
+        dev, every_step=(), some_step=("sdf_mlp",),
+        never=("sdf_mlp_xyz", "secant", "sphere_march"))
+    log(f"[fused_grad] bench_phaseB with fused_value_grad {ms:.1f} ms/step, "
+        f"peak {peak:.2f} GiB; phase 3 (autograd) in this run "
+        f"{autograd_stats[0]:.1f} ms/step, peak {autograd_stats[1]:.2f} GiB")
+
+
+def check_jpeg_fixtures():
+    """Every committed JPEG fixture decoded equal to its committed OpenCV
+    decode (the 1600x1200 view: to the SHA-256 of it), the progressive one
+    refused naming the file; the decoder's ms per megapixel on the
+    1600x1200 view, the median of JPEG_REPS decodes."""
+    import glob
+    import numpy as np
+    from mvsdf_tpu_torch.data import jpeg
+    from mvsdf_tpu_torch.data.convert import imread_color
+    t0 = time.perf_counter()
+    jpeg._lib()
+    build_s = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    prog = [p for p in paths if "progressive" in os.path.basename(p)]
+    small = [p for p in paths if os.path.exists(p[:-4] + ".npy")]
+    bad = [os.path.basename(p) for p in small
+           if not np.array_equal(imread_color(p), np.load(p[:-4] + ".npy"))]
+    want = full_view_decode()
+    full = imread_color(FULL_VIEW + ".jpg")
+    full_ok = (list(full.shape) == want["shape"] and
+               sha256(full) == want["sha256"])
+    refused = []
+    for p in prog:
+        try:
+            jpeg.read_jpeg(p)
+        except ValueError as e:
+            refused.append(p in str(e) and "progressive" in str(e))
+    data = open(FULL_VIEW + ".jpg", "rb").read()
+    mpix = full.shape[0] * full.shape[1] / 1e6
+    times = []
+    for _ in range(JPEG_REPS):
+        t0 = time.perf_counter()
+        jpeg.decode_jpeg(data)
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    log(f"[convert] JPEG decoder: built in {build_s:.2f} s; {len(small)} "
+        f"small fixtures {'all equal to' if not bad else f'{bad} differ from'}"
+        f" their OpenCV decodes; the {full.shape[1]}x{full.shape[0]} view "
+        f"{'equal to' if full_ok else 'DIFFERS from'} OpenCV's decode "
+        f"(SHA-256); {len(prog)} progressive refused naming the file: "
+        f"{all(refused) and len(refused) == len(prog)}; the "
+        f"{full.shape[1]}x{full.shape[0]} view ({len(data)} bytes) in "
+        f"{ms:.3f} ms = {ms / mpix:.3f} ms per megapixel (median of "
+        f"{JPEG_REPS}, range {min(times) * 1e3:.3f}-{max(times) * 1e3:.3f} "
+        f"ms)")
+    if bad or not full_ok or not prog or not all(refused) or \
+            len(refused) != len(prog):
+        raise AssertionError("the JPEG decoder disagrees with its fixtures")
+
+
+def full_view_decode():
+    with open(FULL_VIEW + ".json") as f:
+        return json.load(f)
+
+
+def sha256(img):
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def bilinear_np(a, size):
+    """The samples of cv2.resize(INTER_LINEAR) / F.interpolate(bilinear,
+    align_corners=False) in float64: a plain reference."""
+    import numpy as np
+
+    def taps(n_out, n_in):
+        src = np.maximum((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0)
+        i0 = np.minimum(np.floor(src).astype(int), n_in - 1)
+        return i0, np.minimum(i0 + 1, n_in - 1), src - i0
+
+    y0, y1, ly = taps(size[0], a.shape[0])
+    x0, x1, lx = taps(size[1], a.shape[1])
+    a = a.astype(np.float64)
+    top = a[y0][:, x0] * (1 - lx) + a[y0][:, x1] * lx
+    bot = a[y1][:, x0] * (1 - lx) + a[y1][:, x1] * lx
+    return top * (1 - ly)[:, None] + bot * ly[:, None]
+
+
+def write_vis_dir(vis, data_dir):
+    """Phase 7's scene as Vis-MVSNet output under ``vis``; returns each
+    view's expected mask (the thresholds of the probability maps through
+    the float64 reference resize) and the cut's normalised sphere
+    radius."""
+    import shutil
+    import numpy as np
+    from mvsdf_tpu_torch.data import formats
+    from mvsdf_tpu_torch.data.convert import (scene_bbox_from_points,
+                                              write_ply_points)
+    root = os.path.dirname(data_dir)
+    os.makedirs(vis)
+    shutil.copyfile(os.path.join(root, "pair.txt"),
+                    os.path.join(vis, "pair.txt"))
+    h, w = CLI_DEPTH
+    masks = []
+    for i in range(CLI_VIEWS):
+        stem = f"{i:08}"
+        shutil.copyfile(os.path.join(data_dir, "image_hd", f"{i:03}.png"),
+                        os.path.join(vis, stem + ".png"))
+        shutil.copyfile(os.path.join(data_dir, "depth", f"{i:03}.pfm"),
+                        os.path.join(vis, f"{stem}_flow3.pfm"))
+        shutil.copyfile(os.path.join(root, f"cam_{stem}_flow3.txt"),
+                        os.path.join(vis, f"cam_{stem}_flow3.txt"))
+        mask = np.ones((h, w), bool)
+        for s, (div, th) in enumerate(zip(PROB_DIVS, (0.8, 0.7, 0.8))):
+            ph, pw = h // div, w // div
+            prob = np.full((ph, pw), PROB_HIGH, np.float32)
+            if i % 3 == s:       # a low region on one map a view
+                prob[ph // 5:ph // 2, pw // 4 + i % 7:pw // 2] = PROB_LOW
+            formats.write_pfm(os.path.join(vis, f"{stem}_flow{s + 1}_prob"
+                                                f".pfm"), prob)
+            mask &= (bilinear_np(prob, (h, w)) if div > 1 else prob) > th
+        masks.append(mask)
+    pts = np.random.default_rng(0).uniform(-CUT_HALF, CUT_HALF, (20000, 3))
+    write_ply_points(os.path.join(vis, "cut.ply"), pts, binary=True)
+    _, size = scene_bbox_from_points(pts.astype(np.float32), perc=0.99)
+    return masks, SPHERE_R / (size / 2)
+
+
+def run_converter(vis, out, kind):
+    """The converter CLI in a subprocess from ``vis`` to ``out``; logs its
+    last line and its timings and returns them (seconds by stage)."""
+    import re
+    os.makedirs(os.path.dirname(out))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mvsdf_tpu_torch.data.convert", "--data_dir",
+         vis, "--out_dir", out], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the converter CLI failed:\n{res.stderr}")
+    lines = res.stdout.strip().splitlines()
+    times = {k: float(v) for k, v in re.findall(
+        r"(decode|resize|write|all) ([0-9.]+) s", lines[-2])}
+    log(f"[convert] CLI on {kind} images: {lines[-1]}")
+    log(f"[convert] CLI on {kind} images {wall:.2f} s in its process; "
+        f"decode {times['decode']:.3f} s, resize {times['resize']:.3f} s, "
+        f"PNG write {times['write']:.3f} s, all {times['all']:.3f} s = "
+        f"{times['all'] / CLI_VIEWS * 1e3:.1f} ms a view")
+    return times
+
+
+def convert_jpeg(tmp, vis, out_png):
+    """The converter CLI on ``vis`` with every view's image the 1600x1200
+    JPEG fixture, as Vis-MVSNet writes ``%08d.jpg``: each ``image_hd``
+    equal to OpenCV's decode of it (SHA-256), the depth maps and cameras
+    equal to the PNG run's ``out_png``."""
+    import glob
+    import numpy as np
+    from mvsdf_tpu_torch.data import png
+    vis_jpg = os.path.join(tmp, "vis_jpg")
+    os.makedirs(vis_jpg)
+    for f in os.listdir(vis):
+        if not f.endswith(".png"):
+            os.symlink(os.path.join(vis, f), os.path.join(vis_jpg, f))
+    for i in range(CLI_VIEWS):
+        os.symlink(FULL_VIEW + ".jpg", os.path.join(vis_jpg, f"{i:08}.jpg"))
+    out = os.path.join(tmp, "converted_jpg", "scan", "imfunc4")
+    times = run_converter(vis_jpg, out, "JPEG")
+    want = full_view_decode()
+    mpix = CLI_VIEWS * want["shape"][0] * want["shape"][1] / 1e6
+    bad = [i for i in range(CLI_VIEWS) if sha256(png.read_png(
+        os.path.join(out, "image_hd", f"{i:03}.png"), native=True)) !=
+        want["sha256"]]
+    same = [os.path.relpath(p, out_png) for p in sorted(
+        glob.glob(os.path.join(out_png, "depth", "*.pfm")))]
+    differ = [r for r in same if open(os.path.join(out, r), "rb").read() !=
+              open(os.path.join(out_png, r), "rb").read()]
+    cams = [np.load(os.path.join(d, "cameras_hd.npz")) for d in (out,
+                                                                 out_png)]
+    cams_ok = all(np.array_equal(cams[0][k], cams[1][k]) for k in cams[1])
+    log(f"[convert] JPEG run: decode {times['decode'] * 1e3 / CLI_VIEWS:.1f}"
+        f" ms a view = {times['decode'] * 1e3 / mpix:.3f} ms per megapixel "
+        f"(file read and signature check included); image_hd "
+        f"{'all equal to' if not bad else f'views {bad} differ from'} "
+        f"OpenCV's decode (SHA-256); {len(same) - len(differ)} of "
+        f"{len(same)} depth maps and the cameras "
+        f"{'equal' if cams_ok else 'DIFFER'} to the PNG run's")
+    if bad or differ or not cams_ok or len(same) != CLI_VIEWS:
+        raise AssertionError("the converter on JPEG images disagrees")
+
+
+def convert_phase(tmp, data_dir):
+    """Phase 12: the JPEG decoder, then the converter CLI on phase 7's scene
+    as Vis-MVSNet output (with phase 7's PNG images, then with the
+    1600x1200 JPEG fixture as every view's image) and the training CLI on
+    what the PNG run wrote."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.data import formats, png
+    check_jpeg_fixtures()
+    t_phase = time.perf_counter()
+    vis = os.path.join(tmp, "vis")
+    t0 = time.perf_counter()
+    masks, radius = write_vis_dir(vis, data_dir)
+    log(f"[convert] wrote a {CLI_VIEWS}-view Vis-MVSNet directory from "
+        f"phase 7's scene (PNG images {CLI_IMG[1]}x{CLI_IMG[0]}, depth "
+        f"{CLI_DEPTH[1]}x{CLI_DEPTH[0]}, probability maps at 1/"
+        f"{PROB_DIVS}, a binary cut.ply): {time.perf_counter() - t0:.2f} s;"
+        f" the radius-{SPHERE_R} sphere normalises to radius {radius:.4f}")
+    out = os.path.join(tmp, "converted", "scan", "imfunc4")
+    run_converter(vis, out, "PNG")
+    flips, bad_img = 0, []
+    cams_in = np.load(os.path.join(data_dir, "cameras_hd.npz"))
+    cams_out = np.load(os.path.join(out, "cameras_hd.npz"))
+    wm_err = 0.0
+    for i in range(CLI_VIEWS):
+        want = formats.load_pfm(os.path.join(data_dir, "depth",
+                                             f"{i:03}.pfm")) * masks[i]
+        got = formats.load_pfm(os.path.join(out, "depth", f"{i:03}.pfm"))
+        flips += int((got != want).sum())
+        if not np.array_equal(
+                png.read_png(os.path.join(out, "image_hd", f"{i:03}.png"),
+                             native=True),
+                png.read_png(os.path.join(data_dir, "image_hd",
+                                          f"{i:03}.png"), native=True)):
+            bad_img.append(i)
+        a, b = cams_out[f"world_mat_{i}"], cams_in[f"world_mat_{i}"]
+        wm_err = max(wm_err, float(np.abs(a - b).max() / np.abs(b).max()))
+    mask_hd = png.read_png(os.path.join(out, "mask_hd", "000.png"))
+    masked = sum(int((~m).sum()) for m in masks)
+    log(f"[convert] depth maps against phase 7's times the reference "
+        f"masks ({masked} pixels masked out): {flips} pixels differ; "
+        f"image_hd against phase 7's images: "
+        f"{'all equal' if not bad_img else f'views {bad_img} differ'}; "
+        f"world_mat max |d| / max |w| {wm_err:.2e}; mask_hd "
+        f"{mask_hd.shape} all 255: {bool((mask_hd == 255).all())}")
+    if flips or bad_img or wm_err > 1e-6 or not (mask_hd == 255).all():
+        raise AssertionError("the converted scene differs from phase 7's")
+    convert_jpeg(tmp, vis, out)
+
+    # train on the converted scene
+    argv = ["--data_dir", out, "--exps_folder",
+            os.path.join(tmp, "exps_convert"), "--expname", "convert",
+            *CONVERT_ARGS]
+    tee = Tee(sys.stdout)
+    launches = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        trainer = train_cli(argv, launches)
+    wall = time.perf_counter() - t0
+    rows = metric_rows(trainer)
+    if [r["step"] for r in rows] != list(range(CONVERT_EPOCHS + 1)) or \
+            not all(np.isfinite(r[k]) for r in rows for k in LOSSES):
+        raise AssertionError(f"training on the converted scene: {rows}")
+    if min(e["sdf_mlp"] for e in launches) == 0 or any(
+            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
+                                             "sphere_march")):
+        raise AssertionError(f"kernel launches by epoch {launches}")
+    sc = trainer.scene
+    log(f"[convert] training CLI on the converted scene: {wall:.1f} s, "
+        f"scene load {sc.timings['load_s']:.2f} s; losses "
+        f"{[round(r['loss'], 6) for r in rows]}, finite; sdf_mlp launches "
+        f"by epoch {[e['sdf_mlp'] for e in launches]}, the other kernels "
+        f"none; ms/step by phase "
+        f"{ {k: round(v[0], 1) for k, v in phase_times(rows, B * P).items()} }"
+        f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"[convert] phase 12 after the fixtures: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1305,14 +1712,15 @@ def main():
                                    tile_ms))
 
     # 3-6. the main path in both trace configurations
-    state, launches = train("train", cfg, batch, gen, dev,
-                            every_step=(), some_step=("sdf_mlp",),
-                            never=("sdf_mlp_xyz", "secant", "sphere_march"))
+    state, launches, stats = train("train", cfg, batch, gen, dev,
+                                   every_step=(), some_step=("sdf_mlp",),
+                                   never=("sdf_mlp_xyz", "secant",
+                                          "sphere_march"))
     eval_render("eval", cfg, state, batch, must=("sdf_mlp",))
-    state, f_launches = train("train_fused", fcfg, batch, gen, dev,
-                              every_step=("sphere_march",),
-                              some_step=("sdf_mlp_xyz", "secant"),
-                              never=("sdf_mlp",))
+    state, f_launches, _ = train("train_fused", fcfg, batch, gen, dev,
+                                 every_step=("sphere_march",),
+                                 some_step=("sdf_mlp_xyz", "secant"),
+                                 never=("sdf_mlp",))
     eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
     # the march's rows on the field the training steps left: rays take more
     # line searches on it than on the seed-0 sphere
@@ -1335,6 +1743,11 @@ def main():
         trim_phase(tmp, os.path.join(
             tmp, "evals", "smoke",
             f"surface_world_coordinates_{CLI_EPOCHS}.obj"))
+        # 11. the bench step through the fused value + gradient; 12. the
+        # JPEG decoder, the converter on phase 7's scene, and training on
+        # what it wrote
+        fused_grad_phase(batch, gen, dev, stats)
+        convert_phase(tmp, run["data_dir"])
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")

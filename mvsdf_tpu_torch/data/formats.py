@@ -1,6 +1,7 @@
 """MVS dataset file formats (port of ``mvsdf_tpu/data/formats.py``): PFM
 depth maps, MVS camera txt, pair.txt view graphs, and RGB / mask images
-read by the port's own PNG codec (``data/png.py``). Pure numpy, host-side.
+read by the port's own PNG and JPEG decoders (``data/png.py``,
+``data/jpeg.py``), picked by the file's signature. Host-side.
 
 Format parity targets:
   - PFM read/write:       ``code/utils/my_utils.py:438-496``
@@ -16,7 +17,8 @@ from typing import Optional
 
 import numpy as np
 
-from .png import read_png
+from . import png
+from .jpeg import SIGNATURE as JPEG_SIGNATURE, read_jpeg
 
 
 def load_pfm(path: str) -> np.ndarray:
@@ -143,10 +145,25 @@ def write_pair(path: str, pair: dict):
         f.write("\n".join(out) + "\n")
 
 
+def read_image(path: str, native: bool = False) -> np.ndarray:
+    """The PNG or JPEG image in ``path``, by the file's signature, as an
+    image library gives it: (H, W) for grey, (H, W, C) otherwise; ``native``
+    as in ``png.read_png``. Any other format raises a ValueError naming the
+    file."""
+    with open(path, "rb") as f:
+        head = f.read(len(png.SIGNATURE))
+    if head == png.SIGNATURE:
+        return png.read_png(path, native)
+    if head.startswith(JPEG_SIGNATURE):
+        img = read_jpeg(path)
+        return img[..., 0] if img.shape[2] == 1 else img
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
 def load_rgb(path: str, native: bool = False) -> np.ndarray:
     """Image -> (3, h, w) float32 in [-1, 1] (ref rend_util.py:8-16);
     ``native`` as in ``png.read_png``."""
-    img = read_png(path, native)
+    img = read_image(path, native)
     img = img.astype(np.float32)
     if img.max() > 1.5:
         img = img / 255.0
@@ -158,7 +175,7 @@ def load_rgb(path: str, native: bool = False) -> np.ndarray:
 
 def load_mask(path: str, native: bool = False) -> np.ndarray:
     """Mask image -> (h, w) bool (threshold 0.5; ref rend_util.py:18-23)."""
-    img = np.asarray(read_png(path, native))
+    img = np.asarray(read_image(path, native))
     if img.ndim == 3:
         img = img[..., :3].mean(-1)
     if img.max() > 1.5:

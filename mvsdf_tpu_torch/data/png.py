@@ -5,7 +5,8 @@ Read: 8- and 16-bit gray, gray + alpha, RGB and RGBA, non-interlaced, every
 row filter (None, Sub, Up, Average, Paeth). The array comes back as an
 image library gives it: (H, W) for gray, (H, W, C) otherwise, uint8 or
 uint16. Palette or interlaced files, other bit depths and other formats
-(JPEG) raise a ``ValueError`` that names the file.
+raise a ``ValueError`` that names the file (``formats.read_image`` picks
+this reader or the JPEG one by the file's signature).
 
 Undoing the row filters is sequential along a row for Average and Paeth
 (each byte adds a predictor from the decoded byte to its left), and

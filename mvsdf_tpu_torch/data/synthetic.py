@@ -10,6 +10,8 @@ the origin, a unit-scale scene (size=2, center=0), depth maps of a sphere.
   with rendered images, for ``data/scene.SceneData`` and the training CLI;
   ``write_pose_init`` adds perturbed initial cameras to one, for camera
   optimisation.
+- ``write_vismvsnet_dir``: a Vis-MVSNet output directory, the input of
+  ``data/convert.py``.
 """
 from __future__ import annotations
 
@@ -270,3 +272,73 @@ def write_scene_dir(root, n_images=3, img_hw=32, depth_hw=16,
     if pose_noise is not None:
         write_pose_init(data_dir, *pose_noise)
     return data_dir
+
+
+def write_vismvsnet_dir(root, n_views=3, hw=16, image_ext=".png",
+                        write_image=None):
+    """Writes a Vis-MVSNet output directory under ``root``, the input of
+    ``data/convert.py``: ``pair.txt`` (each view paired with all the
+    others, scores 100, 90, ...), ``cam_%08d_flow3.txt`` (cameras on a ring 2.5 from the origin, K
+    at the depth maps' size), ``%08d<image_ext>`` random images at 4x the
+    depth size, ``%08d_flow3.pfm`` depths uniform in [2, 3] at ``hw`` x
+    ``hw``, ``%08d_flow{1,2,3}_prob.pfm`` probabilities at 1/4, 1/2 and 1x
+    that size, as Vis-MVSNet writes them (0.95, and 0.05 on the left half
+    of view 0's flow3 map and on the top-left quarter of view 1's flow1
+    map), and an ascii ``cut.ply``, 500 points uniform in
+    [-0.5, 0.5]^3. The draws follow the JAX package's test fixture
+    (``tests/unit/test_convert.py``), from ``np.random.default_rng(0)``.
+    The probabilities are 0.95 and 0.05 so that no bilinear sample of them
+    lies near a threshold of 0.8 or 0.7. PNG images are written with
+    ``png.write_png``; another format needs ``write_image(path, rgb)``.
+    Returns (cams (n, 2, 4, 4), cut points)."""
+    from . import formats
+    from .convert import write_ply_points
+    from .png import write_png
+    if write_image is None:
+        if image_ext != ".png":
+            raise ValueError(f"no writer for {image_ext} images: pass "
+                             f"write_image")
+        write_image = write_png
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    ids = [str(i) for i in range(n_views)]
+    pair = {"id_list": ids}
+    for i in ids:
+        srcs = [j for j in ids if j != i]
+        pair[i] = {"id": i, "index": int(i), "pair": srcs,
+                   "score": [100.0 - 10 * k for k in range(len(srcs))]}
+    formats.write_pair(os.path.join(root, "pair.txt"), pair)
+    cams = []
+    for k in range(n_views):
+        ang = 2 * np.pi * k / n_views
+        R = np.array([[np.cos(ang), 0, np.sin(ang)],
+                      [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        c = -R.T @ np.array([0, 0, 2.5])
+        E = np.eye(4)
+        E[:3, :3] = R
+        E[:3, 3] = -R @ c
+        K = np.array([[hw * 1.2, 0, hw / 2, 0],
+                      [0, hw * 1.2, hw / 2, 0],
+                      [0, 0, 1, 0],
+                      [1.0, 0.01, 256, 3.0]])  # depth min/interval/num/max
+        cam = np.stack([E, K])
+        cams.append(cam)
+        stem = f"{k:08}"
+        formats.write_cam(os.path.join(root, f"cam_{stem}_flow3.txt"), cam)
+        img = rng.uniform(0, 255, (hw * 4, hw * 4, 3)).astype(np.uint8)
+        write_image(os.path.join(root, stem + image_ext), img)
+        depth = rng.uniform(2.0, 3.0, (hw, hw)).astype(np.float32)
+        formats.write_pfm(os.path.join(root, f"{stem}_flow3.pfm"), depth)
+        for s, div in zip((1, 2, 3), (4, 2, 1)):
+            n = hw // div
+            prob = np.full((n, n), 0.95, np.float32)
+            if k == 0 and s == 3:
+                prob[:, :n // 2] = 0.05
+            if k == 1 and s == 1:
+                prob[:n // 2, :n // 2] = 0.05
+            formats.write_pfm(os.path.join(root, f"{stem}_flow{s}_prob.pfm"),
+                              prob)
+    pts = rng.uniform(-0.5, 0.5, (500, 3))
+    write_ply_points(os.path.join(root, "cut.ply"), pts, binary=False)
+    return np.stack(cams), pts

@@ -6,7 +6,9 @@ re-concatenated at layer 4 (scaled 1/sqrt(2)), Softplus(beta=100)
 activations, and a geometric init that makes the SDF approximate a sphere
 of radius ``bias``. The spatial gradient is one ``torch.autograd.grad``
 with ``create_graph=True`` and cotangent e0, so it stays differentiable
-with respect to the parameters.
+with respect to the parameters; with ``fused_value_grad`` the value, the
+gradient and their backward run through the hand-derived
+``fused_grad.FusedValueGrad`` instead.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from .embedder import embed_dim, positional_encoding
+from .fused_grad import fused_full_value_and_grad
 from .mlp import WNLinear
 
 
@@ -35,6 +38,11 @@ class ImplicitConfig:
     # Store hidden activations in bf16; products and sums stay f32 (see
     # mlp.linear_apply).
     bf16_activations: bool = False
+    # The value + spatial gradient and their backward through the
+    # hand-derived fused_grad.FusedValueGrad (one tangent pass, stacked
+    # cotangent matmuls, only pre-activations kept) instead of autograd's
+    # double backward. Off by default, as in the JAX package.
+    fused_value_grad: bool = False
 
     @property
     def layer_dims(self) -> Tuple[int, ...]:
@@ -156,7 +164,10 @@ def full_value_and_grad(net: ImplicitNetwork, x: torch.Tensor):
     forward pass. When grad mode is on, the gradient keeps its graph
     (``create_graph=True``) so losses on it reach the parameters and, if
     ``x`` itself requires grad, whatever ``x`` was computed from. Under
-    ``torch.no_grad()`` both results come back detached."""
+    ``torch.no_grad()`` both results come back detached. With
+    ``cfg.fused_value_grad`` the same through ``fused_grad``."""
+    if net.cfg.fused_value_grad:
+        return fused_full_value_and_grad(net, x)
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x if (create and x.requires_grad) else \

@@ -12,7 +12,7 @@ from mvsdf_tpu_torch.tracing.kernels import build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUDA_FILES = ["march.cu", "mlp_tile_tc.cuh", "png_unfilter.cu", "sdf_mlp.cu",
               "secant.cu"]
-HOST_FILES = ["marching_tets.cpp", "maxflow.cpp"]
+HOST_FILES = ["jpeg.cpp", "marching_tets.cpp", "maxflow.cpp"]
 
 
 def test_library_path_follows_every_file_under_csrc(tmp_path):
@@ -47,6 +47,7 @@ def test_host_library_path_follows_its_source_only(tmp_path):
     assert os.path.basename(host["marching_tets.cpp"]).startswith(
         "libmarching_tets_")
     assert os.path.basename(host["maxflow.cpp"]).startswith("libmaxflow_")
+    assert os.path.basename(host["jpeg.cpp"]).startswith("libjpeg_")
     for name in HOST_FILES:
         cuda = build.library_path(str(csrc), out)
         with open(csrc / name, "a") as f:

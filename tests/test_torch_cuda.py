@@ -462,3 +462,101 @@ def test_camera_training_step_on_the_card(cuda):
     assert (np.abs(pv[:2] - pv0[:2]).max(1) > 0).all()
     np.testing.assert_array_equal(pv[2:], pv0[2:])
     assert int(state.cam_opt.step) == 1
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_fused_value_grad_matches_autograd_on_the_card(cuda, kw):
+    """The fused value + gradient (fields/fused_grad.py) against the
+    autograd path on the card in f32 (TF32 off): out, g and the gradients
+    of every parameter and of x under a loss that reads value, eikonal and
+    a directional term of g; the bounds of the CPU tests (out and g within
+    1e-5, each gradient within 2e-5 of its largest entry)."""
+    import dataclasses
+    cfg = t_sdf.ImplicitConfig(**kw)
+    net = t_sdf.init_implicit(cfg, np.random.default_rng(0)).to(cuda)
+    x0 = torch.rand((4097, 3), generator=torch.Generator(device=cuda)
+                    .manual_seed(0), device=cuda) * 1.8 - 0.9
+    runs = []
+    for fused in (True, False):
+        net.cfg = dataclasses.replace(cfg, fused_value_grad=fused)
+        x = x0.clone().requires_grad_(True)
+        out, g = t_sdf.full_value_and_grad(net, x)
+        loss = ((out[:, 0] ** 2).mean() + 0.3 * (out[:, 1:] ** 2).mean() +
+                ((g.norm(dim=-1) - 1) ** 2).mean() +
+                0.7 * (g * torch.sin(3 * x)).sum(-1).mean())
+        grads = torch.autograd.grad(loss, [x, *net.parameters()])
+        runs.append((out.detach(), g.detach(), grads))
+    (of, gf, df), (oa, ga, da) = runs
+    assert (of - oa).abs().max().item() <= 1e-5
+    assert (gf - ga).abs().max().item() <= 1e-5
+    for a, b in zip(df, da):
+        assert (a - b).abs().max().item() <= 2e-5 * max(
+            b.abs().max().item(), 1e-12)
+
+
+@pytest.mark.cuda
+def test_jpeg_decoder_on_the_fixtures_on_the_card_machine(cuda):
+    """The JPEG decoder (host C++) builds on the card's machine and equals
+    the committed OpenCV decode of every fixture (the 1600x1200 view by its
+    SHA-256); the progressive fixture raises naming the file."""
+    import glob
+    import hashlib
+    import json
+    from mvsdf_tpu_torch.data.convert import imread_color
+    from mvsdf_tpu_torch.data.jpeg import read_jpeg
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures", "jpeg")
+    paths = sorted(glob.glob(os.path.join(fixtures, "*.jpg")))
+    assert len(paths) >= 9
+    for p in paths:
+        if "progressive" in p:
+            with pytest.raises(ValueError, match="progressive"):
+                read_jpeg(p)
+        elif os.path.exists(p[:-4] + ".json"):
+            want = json.load(open(p[:-4] + ".json"))
+            got = np.ascontiguousarray(imread_color(p))
+            assert list(got.shape) == want["shape"]
+            assert hashlib.sha256(got.tobytes()).hexdigest() == \
+                want["sha256"]
+        else:
+            np.testing.assert_array_equal(imread_color(p),
+                                          np.load(p[:-4] + ".npy"))
+
+
+@pytest.mark.cuda
+def test_converter_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The converter CLI on the card (resizes on the device, PNG rows
+    unfiltered by the host C code) writes what it writes with --platform
+    cpu: equal depth maps, images, masks and cameras."""
+    import subprocess
+    import sys
+    from mvsdf_tpu_torch.data import formats, png
+    from mvsdf_tpu_torch.data.synthetic import write_vismvsnet_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    vis = str(tmp_path / "vis")
+    write_vismvsnet_dir(vis, 3, 16)
+    outs = {}
+    for name, extra in (("card", []), ("cpu", ["--platform", "cpu"])):
+        outs[name] = str(tmp_path / name / "scan")
+        os.makedirs(os.path.dirname(outs[name]))
+        res = subprocess.run(
+            [sys.executable, "-m", "mvsdf_tpu_torch.data.convert",
+             "--data_dir", vis, "--out_dir", outs[name], *extra], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+            text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.strip().splitlines()[-2].endswith(
+            "cuda" if name == "card" else "cpu")
+    a, b = outs["card"], outs["cpu"]
+    for k in range(3):
+        np.testing.assert_array_equal(
+            formats.load_pfm(os.path.join(a, "depth", f"{k:03}.pfm")),
+            formats.load_pfm(os.path.join(b, "depth", f"{k:03}.pfm")))
+        for sub in ("image_hd", "mask_hd"):
+            np.testing.assert_array_equal(
+                png.read_png(os.path.join(a, sub, f"{k:03}.png")),
+                png.read_png(os.path.join(b, sub, f"{k:03}.png")))
+    ca, cb = (np.load(os.path.join(d, "cameras_hd.npz")) for d in (a, b))
+    for key in cb.files:
+        np.testing.assert_array_equal(ca[key], cb[key])

@@ -16,6 +16,8 @@ from mvsdf_tpu.train.step import init_params as j_init_params
 from mvsdf_tpu import config as jc
 from mvsdf_tpu_torch import config as tc
 from mvsdf_tpu_torch.convert import params_from_jax, params_to_jax
+from mvsdf_tpu_torch.data.convert import convert as convert_images
+from mvsdf_tpu_torch.data.convert import main as convert_main
 from mvsdf_tpu_torch.data.synthetic import make_scene
 from mvsdf_tpu_torch.eval import marching_native
 from mvsdf_tpu_torch.eval.marching import eval_sdf_grid, extract_mesh
@@ -95,6 +97,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_mesh(sphere, 8)
     assert extract_mesh(sphere, 8, device="cpu")[1].shape[1] == 3
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_main(["--data_dir", "vis", "--out_dir", "scene"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_images("vis", "scene")
 
 
 def test_the_eval_modules_are_scanned_and_build_from_the_port():
@@ -104,7 +110,8 @@ def test_the_eval_modules_are_scanned_and_build_from_the_port():
     files = {os.path.relpath(p, REPO) for p in _port_files()}
     for mod in ("eval/cli.py", "eval/psnr.py", "eval/chamfer.py",
                 "eval/dtu_eval.py", "eval/marching_native.py",
-                "eval/mesh.py", "data/convert.py"):
+                "eval/mesh.py", "data/convert.py", "data/jpeg.py",
+                "fields/fused_grad.py"):
         assert os.path.join("mvsdf_tpu_torch", mod) in files, mod
     src = os.path.join(build.CSRC, marching_native.SOURCE)
     assert os.path.exists(src)
