@@ -5,8 +5,9 @@ model at the bench shapes, then an eval render) through them, trains a
 DTU-sized scene directory end to end through the training CLI, evaluates
 the checkpoint through the eval CLI, does both again with camera
 optimisation, trims the mesh, runs the bench step through the fused value
-+ gradient, converts a Vis-MVSNet directory and trains on it, and prints
-what it measured.
++ gradient, converts a Vis-MVSNet directory and trains on it, trains data
+parallel over two processes, exports the renderer for serving, draws the
+figures, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -90,7 +91,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   phase 7's images, world_mats within f32 rounding of phase
                   7's; then the training CLI on the converted scene
                   (--nepoch 2): finite losses, sdf_mlp only
-Every kernel count is set to 0 just before each of phases 3-12 and read
+  13. ddp         data parallel: epoch 0 (phase A) of phase 7's scene and
+                  configuration through the training CLI's Trainer in two
+                  processes on this card, a gloo group (NCCL refuses two
+                  ranks on one device), 2,048 rays a rank, and beside them
+                  in this process alone: the first step's loss terms within
+                  DDP_LOSS_RTOL and its gradients within DDP_GRAD_TOL of the
+                  single process's, the ranks' parameters equal after the
+                  epoch; ms/step per rank and alone, the all-reduce time,
+                  sdf_mlp launches per rank. Then the training CLI under
+                  python -m torch.distributed.run --nproc_per_node 1 (a NCCL
+                  group of one) for epochs 0..1: its files and scene_1.png
+  14. export      the serving export of the full-width renderer traced on
+                  the card (the plain field, the static trace), saved,
+                  loaded and fed phase 7's epoch-6 checkpoint: one
+                  EXPORT_CHUNK-ray chunk of view 0 against the live render
+                  of the plain field (hit masks agree on EXPORT_AGREE of the
+                  rays, rgb within EXPORT_TOL where they agree) and against
+                  the live --pallas render (eval_render's gates); no kernel
+                  launched by the artifact; export, load and render times,
+                  peak memory
+  15. figures     the scene snapshot of phase 8's mesh with the 49 cameras,
+                  and the depth maps of 8 views: PNGs that decode to the
+                  expected shapes and are not blank; their seconds
+Every kernel count is set to 0 just before each of phases 3-15 and read
 just after it. The line before the last is a JSON object listing each kernel;
 the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
@@ -193,6 +217,17 @@ JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "jpeg")
 # shape and SHA-256 of OpenCV's decode of it
 FULL_VIEW = os.path.join(JPEG_FIXTURES, "view_1600x1200")
 JPEG_REPS = 9
+# the ddp phase: two ranks against one process, one step, the step
+# parity's tolerances (loss terms relative, each gradient tensor against
+# its largest entry); the ranks' parameters equal to the bit
+DDP_RANKS = 2
+DDP_LOSS_RTOL, DDP_GRAD_TOL = 1e-4, 2e-3
+DDP_TIMEOUT_S = 300
+# the export phase: a chunk of view 0 (rays through the image's middle),
+# against the live plain render
+EXPORT_CHUNK = 10000
+EXPORT_AGREE, EXPORT_TOL = 0.999, 1e-4
+DEPTH_VIEWS = 8
 
 
 def log(msg):
@@ -1077,6 +1112,7 @@ def eval_phase(tmp, exps, dev):
         f"{k_mean - p_mean:.3e}, max {k_max - p_max:.3e}")
     if not (np.isfinite([k_mean, p_mean]).all() and len(pf)):
         raise AssertionError("no trained surface to measure")
+    return result.verts, result.faces
 
 
 def cams_phase(tmp, data_dir, cli_times):
@@ -1659,6 +1695,342 @@ def convert_phase(tmp, data_dir):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def ddp_args(data_dir, exps, name, nepoch=CLI_EPOCHS):
+    """Phase 7's training CLI arguments for experiment ``name``."""
+    return ["--data_dir", data_dir, "--exps_folder", exps, "--expname",
+            name, "--pallas", "--allow_random_features", "--nepoch",
+            str(nepoch), "--batch_size", str(B), "--num_pixels", str(P)]
+
+
+def first_epoch(trainer):
+    """Epoch 0 through ``trainer``, recording the first step's metrics and
+    gradients (the ones Adam applied), each step's wall ms, the wall ms in
+    the step's reductions (``sum_`` and the losses' ``sum_counts``, the
+    wait for the other ranks included), the kernel launches and the
+    parameters after the epoch."""
+    from mvsdf_tpu_torch.supervision import losses
+    from mvsdf_tpu_torch.train import step as step_mod
+    rec = {"step_ms": [], "reduce_ms": 0.0}
+    sync = trainer._sync
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            rec["reduce_ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    phase = trainer.cfg.schedule.phase_index(0)
+    step = trainer._get_step(phase)
+
+    def recorded(state, batch, weights, generator=None):
+        sync()
+        t0 = time.perf_counter()
+        m = step(state, batch, weights, generator)
+        sync()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if "first" not in rec:
+            rec["first"] = {k: float(v) for k, v in m.items()}
+            rec["grads"] = {n: p.grad.detach().cpu().clone()
+                            for n, p in state.net.named_parameters()}
+        return m
+
+    patched = [(step_mod, "sum_"), (losses, "sum_counts")]
+    saved = [getattr(m, n) for m, n in patched]
+    for m, n in patched:
+        setattr(m, n, timed(getattr(m, n)))
+    trainer.steps[phase] = recorded
+    zero_counts()
+    try:
+        trainer.train_epoch(0)
+    finally:
+        for (m, n), f in zip(patched, saved):
+            setattr(m, n, f)
+        trainer.steps[phase] = step
+    rec["launches"] = counts()
+    rec["params"] = {k: v.detach().cpu().clone()
+                     for k, v in trainer.state.net.state_dict().items()}
+    return rec
+
+
+def ddp_worker(out, *argv):
+    """One rank of phase 13 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT set by the caller): a gloo group (NCCL refuses two ranks
+    on one device), the training CLI's setup, epoch 0, the record saved to
+    ``out``."""
+    import torch
+    from mvsdf_tpu_torch.parallel import init_distributed
+    from mvsdf_tpu_torch.train import cli
+    init_distributed("gloo")
+    trainer, _ = cli.setup(list(argv))
+    t0 = time.perf_counter()
+    rec = first_epoch(trainer)
+    rec["epoch_s"] = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(rec, out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(tmp, argv):
+    """DDP_RANKS processes of ``ddp_worker`` on this card; their records.
+    Every process is stopped before this returns."""
+    import torch
+    port = free_port()
+    procs, outs = [], []
+    try:
+        for r in range(DDP_RANKS):
+            out = os.path.join(tmp, f"ddp_rank{r}.pt")
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DDP_RANKS),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), PYTHONPATH=REPO)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "ddp_worker",
+                 out, *argv], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+            outs.append(out)
+        texts = [p.communicate(timeout=DDP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r} exited {p.returncode}:\n{text[-3000:]}"
+              for r, (p, text) in enumerate(zip(procs, texts))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return [torch.load(o) for o in outs]
+
+
+def ddp_phase(tmp, data_dir):
+    """Phase 13: epoch 0 of phase 7's configuration in DDP_RANKS gloo
+    processes on this card and in this process alone; then a NCCL group
+    of one through torchrun. Returns the single process's trainer."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.train import cli
+    exps = os.path.join(tmp, "ddp_exps")
+    t_phase = time.perf_counter()
+    # the ranks share the card with this process: hand back its cache
+    torch.cuda.empty_cache()
+    log(f"[ddp] this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+        f" GiB of the card before the ranks start")
+    t0 = time.perf_counter()
+    ranks = run_ranks(tmp, ddp_args(data_dir, exps, "ddp"))
+    ranks_s = time.perf_counter() - t0
+    trainer, _ = cli.setup(ddp_args(data_dir, exps, "ddp_single"))
+    t0 = time.perf_counter()
+    single = first_epoch(trainer)
+    single_s = time.perf_counter() - t0
+    a = ranks[0]
+    loss = max(abs(a["first"][k] - single["first"][k]) /
+               max(abs(single["first"][k]), 1e-12) for k in LOSSES
+               if single["first"][k] != 0)
+    each = {n: ((a["grads"][n] - g).abs().max() /
+                g.abs().max().clamp_min(1e-12)).item()
+            for n, g in single["grads"].items()}
+    worst = max(each, key=each.get)
+    same = all(torch.equal(v, ranks[1]["params"][k])
+               for k, v in a["params"].items())
+    n_steps = len(single["step_ms"])
+    for r, rec in enumerate(ranks):
+        log(f"[ddp] rank {r} of {DDP_RANKS} (gloo, cuda:0, "
+            f"{P // DDP_RANKS} rays an image): {np.mean(rec['step_ms'][1:]):.1f}"
+            f" ms/step after the first (steps "
+            f"{[round(x, 1) for x in rec['step_ms']]}), reductions "
+            f"{rec['reduce_ms'] / n_steps:.2f} ms a step (the wait for the "
+            f"other rank included); sdf_mlp launches "
+            f"{rec['launches']['sdf_mlp']} in {n_steps} steps, the other "
+            f"kernels {[rec['launches'][k] for k in ('sdf_mlp_xyz', 'secant', 'sphere_march')]}"
+            f"; hit {rec['first']['hit_frac']:.4f}; peak "
+            f"{rec['peak_gib']:.2f} GiB")
+    log(f"[ddp] one process: {np.mean(single['step_ms'][1:]):.1f} ms/step "
+        f"after the first (steps "
+        f"{[round(x, 1) for x in single['step_ms']]}); sdf_mlp launches "
+        f"{single['launches']['sdf_mlp']}; hit "
+        f"{single['first']['hit_frac']:.4f}; the ranks' processes "
+        f"{ranks_s:.1f} s with their start and scene load, this one's "
+        f"epoch {single_s:.1f} s")
+    ok = loss <= DDP_LOSS_RTOL and each[worst] <= DDP_GRAD_TOL and same
+    log(f"[ddp] first step, {DDP_RANKS} ranks against one process: worst "
+        f"loss term {loss:.3e} relative (tolerance {DDP_LOSS_RTOL:g}), worst "
+        f"gradient {each[worst]:.3e} of its largest entry ({worst}; "
+        f"tolerance {DDP_GRAD_TOL:g}); the ranks' parameters after the "
+        f"epoch {'equal to the bit' if same else 'DIFFERENT'}: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok or min(r["launches"]["sdf_mlp"] for r in ranks) == 0:
+        raise AssertionError("the data-parallel step disagrees with the "
+                             "single process")
+    # the CLI under torchrun: a NCCL group of one
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "mvsdf_tpu_torch.train.cli",
+         *ddp_args(data_dir, exps, "ddp_nccl", nepoch=1)],
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=DDP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    exp = os.path.join(exps, "ddp_nccl")
+    exp = os.path.join(exp, sorted(os.listdir(exp))[-1]) if \
+        os.path.isdir(exp) else exp
+    group = [line for line in res.stdout.splitlines()
+             if line.startswith("process group")]
+    files = {f: os.path.isfile(os.path.join(exp, f)) for f in (
+        "metrics.jsonl", os.path.join("checkpoints", "latest.txt"),
+        os.path.join("plots", "scene_1.png"))}
+    log(f"[ddp] torchrun --nproc_per_node 1 (training CLI, epochs 0..1): "
+        f"exit {res.returncode} in {wall:.1f} s; {group}; files {files}")
+    if res.returncode != 0 or not all(files.values()) or \
+            "backend nccl" not in "".join(group):
+        raise AssertionError(f"the CLI under torchrun failed:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    log(f"[ddp] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return trainer
+
+
+def rendered(rgb):
+    """Hit mask of an eval render's rgb: a miss is exactly (1, 1, 1)."""
+    return (rgb != 1.0).any(-1)
+
+
+def export_phase(tmp, exps, trainer, dev):
+    """Phase 14: the serving export of the full-width renderer, fed phase
+    7's epoch-6 checkpoint, against the live renders."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.config import MVSDFConfig
+    from mvsdf_tpu_torch.eval import export
+    from mvsdf_tpu_torch.fields.network import MVSDFNetwork
+    from mvsdf_tpu_torch.rendering.renderer import render_forward
+    from mvsdf_tpu_torch.train import checkpoints as ckpt
+    t_phase = time.perf_counter()
+    # full f32, as the eval CLI renders (the training CLIs of phase 13 left
+    # TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MVSDFConfig()
+    stamp = sorted(os.listdir(os.path.join(exps, "smoke")))[-1]
+    tree, _ = ckpt.load_checkpoint(
+        os.path.join(exps, "smoke", stamp, "checkpoints"), CLI_EPOCHS,
+        map_location=dev)
+    params = tree["net"]
+    zero_counts()
+    t0 = time.perf_counter()
+    # checked to load on the card only: the CPU tests load it on the CPU
+    blob = export.export_renderer(cfg, params, chunk=EXPORT_CHUNK,
+                                  platforms=("cuda",), device=dev)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "renderer.pt2")
+    with open(path, "wb") as f:
+        f.write(blob)
+    t0 = time.perf_counter()
+    served = export.load_renderer(path, device=dev)
+    load_s = time.perf_counter() - t0
+    c = trainer.cache
+    H, W = trainer.scene.img_res
+    sel = torch.arange(EXPORT_CHUNK, device=dev) + (H // 2) * W
+    inputs = (c.uv[sel][None], c.intrinsics[:1], c.poses[:1],
+              c.masks[0][sel][None])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        served(params, *inputs)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = served(params, *inputs)
+        torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = counts()
+    net = MVSDFNetwork(cfg.model.implicit, cfg.model.render).to(dev)
+    net.load_state_dict(params)
+    view = dict(zip(("uv", "intrinsics", "pose", "object_mask"), inputs))
+    pallas = dataclasses.replace(cfg.model, use_pallas_trace=True)
+    with torch.no_grad():
+        plain = render_forward(cfg.model, net, view, training=False)
+        zero_counts()
+        live_k = render_forward(pallas, net, view, training=False)
+        torch.cuda.synchronize()
+    k_launches = counts()
+    got, plain_rgb = got[0], plain.rgb_values[0]
+    hit, plain_hit = rendered(got), plain.network_object_mask[0]
+    agree = (hit == plain_hit)
+    err = (got - plain_rgb)[agree].abs().max().item()
+    k_hit = live_k.network_object_mask[0]
+    k_agree = (hit == k_hit).float().mean().item()
+    both = (k_hit & plain_hit)
+    derr = (live_k.dists - plain.dists)[0][both].abs().max().item() if \
+        both.any() else 0.0
+    k_rgb = (got - live_k.rgb_values[0])[hit & k_hit].abs()
+    log(f"[export] full-width renderer, chunk {EXPORT_CHUNK}: exported on "
+        f"the card in {export_s:.2f} s ({len(blob) / 1e6:.2f} MB, checked "
+        f"to load on cuda), loaded in {load_s:.2f} s, one chunk "
+        f"rendered in {render_ms:.1f} ms, peak {peak:.2f} GiB; kernel "
+        f"launches by the artifact {launched}")
+    log(f"[export] against the live plain render of the same rays: hit "
+        f"{hit.float().mean().item():.4f} / {plain_hit.float().mean().item():.4f}"
+        f", masks agree on {agree.float().mean().item():.5f} (gate "
+        f"{EXPORT_AGREE}), max |d rgb| where they agree {err:.3e} (gate "
+        f"{EXPORT_TOL:g})")
+    log(f"[export] against the live --pallas render: masks agree on "
+        f"{k_agree:.5f} (gate 0.99), max |d rgb| on common hits "
+        f"{(k_rgb.max().item() if k_rgb.numel() else 0):.3e}; the --pallas "
+        f"render against the plain one: max |d dists| on common hits "
+        f"{derr:.2e} (gate 1e-3); its launches {k_launches}")
+    if agree.float().mean().item() < EXPORT_AGREE or err > EXPORT_TOL or \
+            k_agree < 0.99 or derr > 1e-3 or any(launched.values()) or \
+            k_launches["sdf_mlp"] == 0 or not torch.isfinite(got).all() \
+            or got.shape != (EXPORT_CHUNK, 3):
+        raise AssertionError("the exported renderer disagrees with the "
+                             "live renders")
+    log(f"[export] phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+def figures_phase(tmp, mesh, trainer):
+    """Phase 15: the scene snapshot of phase 8's mesh with the cameras,
+    and DEPTH_VIEWS depth maps."""
+    import numpy as np
+    from mvsdf_tpu_torch.data import png
+    from mvsdf_tpu_torch.eval import plots
+    verts, faces = mesh
+    zero_counts()
+    snap = os.path.join(tmp, "scene.png")
+    t0 = time.perf_counter()
+    plots.plot_scene_snapshot(snap, verts, faces, poses=trainer.scene.poses)
+    snap_s = time.perf_counter() - t0
+    depths = trainer.scene.depths[:DEPTH_VIEWS, 0]
+    h, w = depths.shape[1:]
+    dpath = os.path.join(tmp, "depth.png")
+    t0 = time.perf_counter()
+    plots.plot_depth_maps(dpath, depths.reshape(DEPTH_VIEWS, -1), (h, w))
+    depth_s = time.perf_counter() - t0
+    img, dimg = png.read_png(snap, native=True), png.read_png(dpath,
+                                                              native=True)
+    drawn = (img != 255).any(-1).mean()
+    cones = (img == plots._CRIMSON).all(-1).sum()
+    colours = [len(np.unique(dimg[:, i * w:(i + 1) * w].reshape(-1, 3),
+                             axis=0)) for i in range(DEPTH_VIEWS)]
+    log(f"[figures] scene snapshot of {len(faces)} faces (drawn "
+        f"{min(len(faces), 30000)}) and {len(trainer.scene.poses)} cameras: "
+        f"{snap_s:.2f} s, {img.shape}, {drawn:.4f} of the pixels drawn, "
+        f"{cones} camera pixels; {DEPTH_VIEWS} depth maps {w}x{h}: "
+        f"{depth_s:.2f} s, {dimg.shape}, viridis colours a map {colours}; "
+        f"launches {counts()}")
+    if img.shape != (plots.SNAPSHOT_PX, plots.SNAPSHOT_PX, 3) or \
+            drawn < 1e-3 or cones == 0 or \
+            dimg.shape != (h, DEPTH_VIEWS * w, 3) or min(colours) < 2:
+        raise AssertionError("a figure is blank or of the wrong shape")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1737,7 +2109,7 @@ def main():
     # the trimming of phase 8's mesh
     with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
         run = cli_phase(tmp)
-        eval_phase(tmp, run["exps"], dev)
+        mesh = eval_phase(tmp, run["exps"], dev)
         exps_cams = cams_phase(tmp, run["data_dir"], run["times"])
         eval_cams_phase(tmp, run["data_dir"], exps_cams, dev)
         trim_phase(tmp, os.path.join(
@@ -1748,6 +2120,11 @@ def main():
         # what it wrote
         fused_grad_phase(batch, gen, dev, stats)
         convert_phase(tmp, run["data_dir"])
+        # 13. data parallel; 14. the serving export; 15. the figures
+        trainer = ddp_phase(tmp, run["data_dir"])
+        export_phase(tmp, run["exps"], trainer, dev)
+        figures_phase(tmp, mesh, trainer)
+        del trainer
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")
@@ -1759,4 +2136,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ddp_worker"]:
+        sys.exit(ddp_worker(*sys.argv[2:]))
     sys.exit(main())

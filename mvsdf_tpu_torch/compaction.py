@@ -6,11 +6,14 @@ fixed-capacity blocks, capacity cascades and a dense overflow branch to give
 XLA static shapes; eager PyTorch gathers exactly the active rows, so the
 capacity fields of ``TracerConfig`` / ``ModelConfig`` carry over from the
 JAX configs but do not change results (nor, here, what is computed beyond
-choosing where to compact).
+choosing where to compact). ``masked_call_into`` gives the same results
+with no gather, for ``torch.export`` (the static trace).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
+
+import torch
 
 
 def compact_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
@@ -34,4 +37,22 @@ def compact_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
             keep = out_masks[k][idx]
             rows, o = idx[keep], o[keep]
         merged.append(t.index_put((rows,), o.to(t.dtype)))
+    return tuple(merged)
+
+
+def masked_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
+                     out_masks: Optional[Sequence] = None) -> Tuple:
+    """``compact_call_into``'s results with no gather: ``fn`` runs on every
+    row, and its outputs replace the targets where the masks say. No shape
+    depends on the data, so ``torch.export`` can capture it; a row's
+    result is what the gathered call gives it, as long as ``fn`` treats
+    rows independently."""
+    if out_masks is not None and len(out_masks) != len(targets):
+        raise ValueError("out_masks must match targets 1:1")
+    outs = fn(*per_row_inputs)
+    merged = []
+    for k, (t, o) in enumerate(zip(targets, outs)):
+        m = mask if out_masks is None else out_masks[k]
+        m = m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
+        merged.append(torch.where(m, o.to(t.dtype), t))
     return tuple(merged)

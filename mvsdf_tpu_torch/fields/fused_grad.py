@@ -236,3 +236,19 @@ def fused_full_value_and_grad(net, x: torch.Tensor):
                                   cfg.bf16_activations,
                                   x.reshape(-1, x.shape[-1]), *Ws, *bs)
     return out.reshape(*lead, out.shape[-1]), g.reshape(*lead, x.shape[-1])
+
+
+@torch.no_grad()
+def value_and_grad(net, x: torch.Tensor):
+    """``sdf.full_value_and_grad``'s results with no autograd involved:
+    the forward and the hand-derived reverse pass seeded on the SDF column
+    (``_forward``), detached. The export's static render uses it, since
+    ``torch.export`` cannot capture ``torch.autograd.grad``."""
+    cfg = net.cfg
+    Ws = [layer.effective_weight() for layer in net.layers]
+    bs = [layer.b for layer in net.layers]
+    lead = x.shape[:-1]
+    out, g, _ = _forward(cfg.multires, tuple(cfg.skip_in),
+                         cfg.bf16_activations, x.reshape(-1, x.shape[-1]),
+                         Ws, bs)
+    return out.reshape(*lead, out.shape[-1]), g.reshape(*lead, x.shape[-1])

@@ -17,6 +17,20 @@ given draws instead (``minimal_steps``, ``eik_points``,
 feed the JAX package and this port identical randomness.
 ``render_view`` renders a whole view in eval mode, in fixed chunks of rays
 (the eval CLI and the training loop's full render).
+
+Data parallel (``parallel/``): a rank's batch holds its share of the ray
+axis, P of the world size's P_glob. Every random draw of a training pass
+is made at the global shape, from a generator seeded alike on every rank,
+and the rank keeps its share: ``minimal_steps`` whole, the eikonal points
+and the depth-surface groups (B, P_glob // 2) by ``shard_bounds`` on axis
+1, after a top-k over the replicated depth maps. So the ranks' samples
+together are the single-process pass's, and so are replayed noise dicts,
+which hold the global draws.
+
+``static=True`` (eval mode) traces with no data-dependent control flow
+(``trace_rays(static=True)``) and takes the shading normals from the
+hand-derived value + gradient instead of autograd, so the pass can be
+captured by ``torch.export`` (``eval/export.py``).
 """
 from __future__ import annotations
 
@@ -30,9 +44,11 @@ from ..config import Gates, ModelConfig
 from ..fields.embedder import positional_encoding
 from ..fields.network import MVSDFNetwork
 from ..fields.radiance import render_apply
+from ..fields.fused_grad import value_and_grad as explicit_value_and_grad
 from ..fields.sdf import full_value_and_grad, implicit_apply, sdf_apply
 from ..geometry import projections as proj
 from ..geometry.cameras import get_camera_params
+from ..parallel import shard_bounds, world_size
 from ..tracing.kernels.march_kernel import sphere_march
 from ..tracing.kernels.sdf_mlp import pack_sdf_weights, sdf_mlp, sdf_mlp_xyz
 from ..tracing.kernels.secant_kernel import secant
@@ -114,7 +130,8 @@ def _dsurf_samples(cfg: ModelConfig, inputs, n_dsurf, generator, noise):
 
 
 def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
-                  object_mask, training, min_steps) -> TraceResult:
+                  object_mask, training, min_steps,
+                  static: bool = False) -> TraceResult:
     """The no-grad trace on the current parameters. With
     cfg.use_pallas_trace, its SDF evaluations go through the fused SDF-MLP
     kernel (with the positional encoding in the kernel when
@@ -150,19 +167,24 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                 return sdf_apply(net.implicit, x)
         return trace_rays(tcfg, sdf_fn, org, dirs, object_mask,
                           training=training, minimal_steps=min_steps,
-                          march_fn=march_fn, secant_fn=secant_fn)
+                          march_fn=march_fn, secant_fn=secant_fn,
+                          static=static)
 
 
 def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                    training: bool, gates: Gates = Gates(),
                    generator: Optional[torch.Generator] = None,
-                   noise: Optional[dict] = None) -> RenderOut:
+                   noise: Optional[dict] = None,
+                   static: bool = False) -> RenderOut:
     """One renderer forward pass over a batch of pixel rays.
 
     inputs: uv (B, P, 2), intrinsics (B, 4, 4), pose (B, 4, 4) | (B, 7),
     object_mask (B, P); plus depths / depth_cams / center / size when the
     dsurf groups are gated on. Training mode needs ``generator`` or a
-    ``noise`` dict holding every draw it makes."""
+    ``noise`` dict holding every draw it makes. ``static`` (eval mode
+    only) gives the export's formulation."""
+    if static and training:
+        raise ValueError("the static formulation is eval mode only")
     tcfg = cfg.tracer
     uv = inputs["uv"]
     B, P, _ = uv.shape
@@ -190,7 +212,7 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
     else:
         min_steps = None
     tr = _frozen_trace(cfg, net, org.detach(), ray_dirs.detach(),
-                       object_mask, training, min_steps)
+                       object_mask, training, min_steps, static)
     dists = tr.dists.detach()
     net_obj_mask = tr.network_object_mask
     points = org + dists[..., None] * ray_dirs
@@ -200,13 +222,18 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
     if training:
         surface_mask = net_obj_mask & object_mask
         r = tcfg.object_bounding_sphere
+        # the sample groups are drawn at the global shape (B, P_glob // 2);
+        # this rank keeps columns [lo, hi)
+        half = P * world_size() // 2
+        lo, hi = shard_bounds(half)
         if noise and "eik_points" in noise:
-            eik_pts = noise["eik_points"].reshape(B, P // 2, 3)
+            eik_pts = noise["eik_points"].reshape(B, half, 3)
         else:
-            eik_pts = torch.rand((B, P // 2, 3),
+            eik_pts = torch.rand((B, half, 3),
                                  generator=need_generator("eik_points"),
                                  device=dev) * (2 * r) - r
-        ones = torch.ones((B, P // 2), device=dev)
+        eik_pts = eik_pts[:, lo:hi]
+        ones = torch.ones((B, hi - lo), device=dev)
         group_list = [("rt_surf", points, surface_mask.float()),
                       ("eik", eik_pts, ones)]
         if gates.use_dsurf:
@@ -217,11 +244,12 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                         raise ValueError(
                             f"noise-replay dsurf sampling needs {nk!r}")
             on_pts, on_ok, ji_pts, ji_ok = _dsurf_samples(
-                cfg, inputs, (B * P) // 2, generator, noise)
-            group_list.append(("dsurf_on", on_pts.reshape(B, P // 2, 3),
-                               on_ok.reshape(B, P // 2).float()))
-            group_list.append(("dsurf_jitter", ji_pts.reshape(B, P // 2, 3),
-                               ji_ok.reshape(B, P // 2).float()))
+                cfg, inputs, B * half, generator, noise)
+            for name, pts, ok in (("dsurf_on", on_pts, on_ok),
+                                  ("dsurf_jitter", ji_pts, ji_ok)):
+                group_list.append(
+                    (name, pts.reshape(B, half, 3)[:, lo:hi],
+                     ok.reshape(B, half)[:, lo:hi].float()))
 
         if cfg.supervised_compact_frac:
             # Every consumer of the rt_surf group masks non-surface lanes to
@@ -253,7 +281,7 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                 groups[name] = {"points": pts, "sdf": rest_out[:, sl, 0],
                                 "grad": rest_g[:, sl], "mask": mask}
                 off += pts.shape[1]
-            eik_out = rest_out[:, :P // 2]
+            eik_out = rest_out[:, :hi - lo]
         else:
             # one forward for every sample group, concatenated on the ray
             # axis
@@ -268,7 +296,7 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                                 "grad": all_g[:, sl], "mask": mask}
                 off += pts.shape[1]
             full_out = all_out[:, :P]
-            eik_out = all_out[:, P:P + P // 2]
+            eik_out = all_out[:, P:P + hi - lo]
         sdf_output = full_out[..., 0]
         surf_logits_pos = full_out[..., 1]
         surf_logits_pos_mask = surface_mask & object_mask_true
@@ -287,8 +315,11 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
     detach_geo = (training and gates.detach_geometry_for_rgb) or \
         cfg.disable_rgb_grad
 
+    value_and_grad = explicit_value_and_grad if static else \
+        full_value_and_grad
+
     def shade(p, v):
-        out_s, nrm = full_value_and_grad(net.implicit, p)
+        out_s, nrm = value_and_grad(net.implicit, p)
         feats = out_s[..., 2:]
         if detach_geo:
             p, nrm, v = p.detach(), nrm.detach(), v.detach()

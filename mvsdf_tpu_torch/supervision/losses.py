@@ -6,6 +6,13 @@
   depth    L1 between SDF and -carved distance, attenuated
   feat     |1 - cos| of warped frozen-CNN features, inliers, / (S * m_i)
   surf     BCE of surface-indicator logits
+
+Data parallel (``parallel/``): a rank's batch holds its share of the rays.
+Every count a loss divides by (the masked means' denominators, the
+per-image hits of the feature loss, the indicator's sample count, the rgb
+loss's B * P) is summed over the ranks with no gradient, so each rank's
+terms are its share of the single-process terms and add up to them; the
+step then sums the ranks' gradients. One process: the counts are its own.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 
 from ..config import Gates, Schedule, Weights
 from ..geometry import projections as proj
+from ..parallel import sum_counts, world_size
 from .carving import carving
 
 
@@ -40,14 +48,16 @@ class LossTerms(NamedTuple):
 
 
 def _masked_mean(num, den):
+    """num / den with den summed over the ranks; 0 where it is 0."""
+    den = sum_counts(den)
     return torch.where(den > 0, num / den.clamp_min(1.0),
                        torch.zeros_like(num))
 
 
 def rgb_loss(rgb_values, rgb_gt, network_object_mask, object_mask):
-    """(B, P, 3) each; L1 over hit&mask lanes / B*P."""
+    """(B, P, 3) each; L1 over hit&mask lanes / B*P (the global count)."""
     m = (network_object_mask & object_mask)[..., None]
-    n = rgb_values.shape[0] * rgb_values.shape[1]
+    n = rgb_values.shape[0] * rgb_values.shape[1] * world_size()
     return torch.sum((rgb_values - rgb_gt).abs() * m) / n
 
 
@@ -127,7 +137,7 @@ def feat_consistency_loss(diff_surf_pts, hit_mask, feat, cam, feat_src,
     corr_loss = (1.0 - corr).abs()                               # (B, S, P)
     valid = inr[:, :1] & inr[:, 1:]
     sel = valid & (corr_loss < 0.5) & hit_mask[:, None]
-    hits = hit_mask.sum(-1).to(corr_loss.dtype)
+    hits = sum_counts(hit_mask.sum(-1).to(corr_loss.dtype))
     s = torch.sum(corr_loss * sel, dim=(1, 2))
     per = torch.where(hits > 0, s / (S * hits).clamp_min(1.0),
                       torch.zeros_like(s))
@@ -142,7 +152,7 @@ def surf_indicator_loss(logits_pos, pos_mask, logits_neg):
     """BCE: traced-surface-in-mask lanes -> 1, eikonal points -> 0."""
     pos = _bce_with_logits(logits_pos, 1.0) * pos_mask
     neg = _bce_with_logits(logits_neg, 0.0)
-    n = pos_mask.sum() + logits_neg.numel()
+    n = sum_counts(pos_mask.sum() + logits_neg.numel())
     return (pos.sum() + neg.sum()) / n.clamp_min(1.0)
 
 

@@ -15,6 +15,14 @@ active; each ``.any()`` test costs one host sync per iteration. The fused
 march and secant kernels (``trace_rays(march_fn=, secant_fn=)``) run those
 loops on the device instead.
 
+``trace_rays(static=True)`` is the JAX formulation itself, for
+``torch.export`` (the serving export): every lane runs the fixed iteration
+counts with converged lanes frozen by the same masks, each SDF evaluation
+and each fallback stage runs on every ray and keeps its result where the
+mask says (``compaction.masked_call_into``), and nothing gathers or tests
+a mask on the host. It reuses the stages below, so a ray's result is the
+gathered path's.
+
 Stages:
   1. ray/bounding-sphere intersection
   2. bidirectional sphere tracing + line search
@@ -32,7 +40,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..compaction import compact_call_into
+from ..compaction import compact_call_into, masked_call_into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +96,12 @@ def _mask_update(unfin2, next2, thr):
     return unfin2 & (curr2 > thr), curr2
 
 
-def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base):
-    """``base`` with lanes ``sel`` replaced by clip(sdf(org + t dirs))."""
+def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False):
+    """``base`` with lanes ``sel`` replaced by clip(sdf(org + t dirs));
+    ``static`` evaluates every lane."""
+    if static:
+        val = sdf_fn(org2 + t2[..., None] * dirs2).clamp(-clip, clip)
+        return torch.where(sel, val, base)
     out = base.clone()
     if sel.any():
         p = org2[sel] + t2[sel][:, None] * dirs2[sel]
@@ -98,12 +110,14 @@ def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base):
 
 
 def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
-                 i0: int, i1: int, init: bool):
+                 i0: int, i1: int, init: bool, static: bool = False):
     """Bidirectional march iterations [i0, i1) on flat (N,)-ray state.
 
     org, dirs (N, 3); unfin2, t2, next2 (2, N): start and end march states
     stacked on axis 0. ``init`` also computes the pre-loop evaluation at the
-    seeded t values. Inactive lanes keep their t and a next value of 0."""
+    seeded t values. Inactive lanes keep their t and a next value of 0, so
+    the iterations that ``static`` runs past the last active lane change
+    nothing."""
     thr = cfg.sdf_threshold
     clip = cfg.dist_clip
     org2 = org.expand(2, *org.shape)
@@ -112,22 +126,24 @@ def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
     zeros = torch.zeros_like(t2)
 
     if init:
-        next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros)
+        next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
+                            static)
 
     i = i0
-    while i < i1 and bool(unfin2.any()):
+    while i < i1 and (static or bool(unfin2.any())):
         unfin2, curr2 = _mask_update(unfin2, next2, thr)
         t2 = t2 + sign2 * curr2
-        next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros)
+        next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
+                            static)
         # line search halving the overshoot: the start march steps t down,
         # the end march steps t up
         not_proj = next2 < 0
         j = 0
-        while j < cfg.line_step_iters and bool(not_proj.any()):
+        while j < cfg.line_step_iters and (static or bool(not_proj.any())):
             step = ((1 - cfg.line_search_step) / (2.0 ** j)) * curr2
             t2 = torch.where(not_proj, t2 - sign2 * step, t2)
             next2 = _eval_where(sdf_fn, org2, dirs2, t2, not_proj, clip,
-                                next2)
+                                next2, static)
             not_proj = next2 < 0
             j += 1
         unfin2 = unfin2 & (t2[0] < t2[1])[None]
@@ -152,9 +168,10 @@ def _segments(cfg: TracerConfig):
 
 
 def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
-                  t_near, t_far):
+                  t_near, t_far, static: bool = False):
     """Bidirectional sphere tracing. org, dirs (L..., 3); mask_intersect,
-    t_near, t_far (L...). Returns (unfinished_start, t_start, t_end)."""
+    t_near, t_far (L...). Returns (unfinished_start, t_start, t_end).
+    ``static`` marches every lane through all iterations, uncompacted."""
     lead = mask_intersect.shape
     R = mask_intersect.numel()
     orgf = org.reshape(R, 3)
@@ -168,11 +185,14 @@ def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
                                  device=t_near.device))
     next2 = torch.zeros_like(t2)
 
-    for i0, i1, compact in _segments(cfg):
+    segments = [(0, cfg.sphere_tracing_iters, False)] if static else \
+        _segments(cfg)
+    for i0, i1, compact in segments:
         init = i0 == 0
         if not compact:
             unfin2, t2, next2 = _march_iters(cfg, sdf_fn, orgf, dirsf,
-                                             unfin2, t2, next2, i0, i1, init)
+                                             unfin2, t2, next2, i0, i1, init,
+                                             static)
             continue
         active = mi if init else (unfin2[0] | unfin2[1])
 
@@ -202,10 +222,12 @@ def _sample_points(org, dirs, t_lo, t_hi, steps):
 
 
 def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
-                   pts, sdf_val, training: bool, secant_fn=None):
+                   pts, sdf_val, training: bool, secant_fn=None,
+                   static: bool = False):
     """Sampler post-processing on flat (N,) rays with samples (N, S): first
     sign crossing, min-SDF fallback, secant (``secant_fn`` when given, on
-    the rays it refines only). Returns (points, net_surface, dists)."""
+    the rays it refines only; ``static``: on every ray, kept on those).
+    Returns (points, net_surface, dists)."""
     S = cfg.n_steps
     weight = torch.arange(S, 0, -1, dtype=sdf_val.dtype,
                           device=sdf_val.device)
@@ -219,13 +241,20 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
     p = _take(pts, pick)
 
     secant_sel = (net_surface & object_mask) if training else net_surface
-    if bool(secant_sel.any()):
+    if static or bool(secant_sel.any()):
         z_high = _take(ts, ind)
         sdf_high = _take(sdf_val, ind)
         ind_lo = (ind - 1) % S  # negative index wraps, as in torch indexing
         z_low = _take(ts, ind_lo)
         sdf_low = _take(sdf_val, ind_lo)
         s = secant_sel
+        if static:
+            args = (org, dirs, z_low, z_high, sdf_low, sdf_high)
+            z_pred = _secant(cfg.n_secant_steps, sdf_fn, *args) if \
+                secant_fn is None else secant_fn(*args)
+            d = torch.where(s, z_pred, d)
+            p = torch.where(s[:, None], org + z_pred[:, None] * dirs, p)
+            return p, net_surface, d
         args = (org[s], dirs[s], z_low[s], z_high[s], sdf_low[s],
                 sdf_high[s])
         if secant_fn is None:
@@ -268,12 +297,12 @@ def _linspace(cfg: TracerConfig, like):
 
 
 def _ray_sampler(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, t_min,
-                 t_max, training: bool, secant_fn=None):
+                 t_max, training: bool, secant_fn=None, static=False):
     """Uniform interval sampling + secant on flat (N,) rays."""
     ts, pts = _sample_points(org, dirs, t_min, t_max, _linspace(cfg, t_min))
     sdf_val = sdf_fn(pts)
     return _sampler_logic(cfg, sdf_fn, org, dirs, object_mask, ts, pts,
-                          sdf_val, training, secant_fn)
+                          sdf_val, training, secant_fn, static)
 
 
 def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
@@ -287,7 +316,7 @@ def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
 
 def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                       is_smp, t_lo, t_hi, steps01, training: bool,
-                      secant_fn=None):
+                      secant_fn=None, static: bool = False):
     """One n_steps-sample evaluation serving both fallback stages: sampler
     rows (is_smp) use the uniform linspace, fill rows the stratified
     steps01. Returns (points, net_surface, dists) on flat (N,) rays."""
@@ -297,7 +326,7 @@ def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     sdf_val = sdf_fn(pts)
     smp_p, smp_net, smp_d = _sampler_logic(
         cfg, sdf_fn, org, dirs, object_mask, ts, pts, sdf_val, training,
-        secant_fn)
+        secant_fn, static)
     idx = torch.argmin(sdf_val, dim=-1)
     mn_p, mn_d = _take(pts, idx), _take(ts, idx)
     p = torch.where(is_smp[:, None], smp_p, mn_p)
@@ -328,7 +357,8 @@ def sphere_intersection(org, dirs, radius: float):
 def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                training: bool, generator: Optional[torch.Generator] = None,
                minimal_steps: Optional[torch.Tensor] = None,
-               march_fn=None, secant_fn=None) -> TraceResult:
+               march_fn=None, secant_fn=None,
+               static: bool = False) -> TraceResult:
     """Full tracing pipeline. org, dirs (L..., 3); object_mask (L...) bool.
     ``sdf_fn`` maps points (..., 3) to SDF values (...). ``minimal_steps``
     (n_steps,) in [0, 1) fixes the stratified fill samples; otherwise they
@@ -338,16 +368,19 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     t_e)`` replaces the march (``_sphere_trace``; the march compaction
     schedule then does not apply), and ``secant_fn(org, dirs, z_low,
     z_high, sdf_low, sdf_high) -> z_pred`` the secant, on (N,) rays: the
-    fused kernels take these places."""
+    fused kernels take these places. ``static`` gives the formulation with
+    no data-dependent control flow or shape (module docstring)."""
     lead = org.shape[:-1]
     R = org[..., 0].numel()
     mask_intersect, t_near, t_far = sphere_intersection(
         org, dirs, cfg.object_bounding_sphere)
     zero = torch.zeros_like(t_near)
 
+    call_into = masked_call_into if static else compact_call_into
     if march_fn is None:
         unfin_s, t_s, t_e = _sphere_trace(cfg, sdf_fn, org, dirs,
-                                          mask_intersect, t_near, t_far)
+                                          mask_intersect, t_near, t_far,
+                                          static)
     else:
         unfin_s, t_s, t_e = march_fn(org, dirs, mask_intersect, t_near,
                                      t_far)
@@ -387,8 +420,9 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
         t_lo = torch.where(sampler_mask, t_s, min_dis)
         t_hi = torch.where(sampler_mask, t_e, max_dis)
         fn = lambda o, d, m, sm, lo, hi: _unified_fallback(
-            cfg, sdf_fn, o, d, m, sm, lo, hi, steps01, training, secant_fn)
-        p_f, net_f, d_f = compact_call_into(
+            cfg, sdf_fn, o, d, m, sm, lo, hi, steps01, training, secant_fn,
+            static)
+        p_f, net_f, d_f = call_into(
             fn, flat(active),
             [flat(org), flat(dirs), flat(object_mask), flat(sampler_mask),
              flat(t_lo), flat(t_hi)],
@@ -406,9 +440,9 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     smp_t_min = torch.where(sampler_mask, t_s, zero)
     smp_t_max = torch.where(sampler_mask, t_e, zero)
     fn = lambda o, d, m, lo, hi: _ray_sampler(cfg, sdf_fn, o, d, m, lo, hi,
-                                              training, secant_fn)
+                                              training, secant_fn, static)
     smpf = flat(sampler_mask)
-    p_f, net_f, d_f = compact_call_into(
+    p_f, net_f, d_f = call_into(
         fn, smpf, [flat(org), flat(dirs), flat(object_mask),
                    flat(smp_t_min), flat(smp_t_max)],
         [flat(points), flat(net_obj_mask), flat(dists)],
@@ -436,7 +470,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     fn = lambda o, d, lo, hi: _minimal_sdf_points(cfg, sdf_fn, o, d, lo, hi,
                                                   steps01)
     fillf = flat(fill)
-    p_f, d_f = compact_call_into(
+    p_f, d_f = call_into(
         fn, fillf, [flat(org), flat(dirs), flat(min_dis), flat(max_dis)],
         [flat(points), flat(dists)], out_masks=[fillf, fillf])
     return TraceResult(p_f.reshape(lead + (3,)), net_obj_mask,

@@ -7,6 +7,16 @@ experiment-folder layout).
 Runs on the GPU unless ``--platform cpu`` is given; without a GPU and
 without that flag it raises. ``setup`` builds the trainer (scene loaded,
 features computed, state initialised) and ``main`` runs it.
+
+Data parallel over N GPUs of a node, one process each, the rays of every
+batch split over them (``parallel/``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m mvsdf_tpu_torch.train.cli --data_dir DATA ... [--pallas]
+
+The processes join a NCCL group (gloo with ``--platform cpu``; a caller
+that has already joined a group keeps it); ``--no_mesh`` runs one process
+and refuses a launch of several.
 """
 from __future__ import annotations
 
@@ -17,6 +27,9 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel import init_distributed, rank, world_size
 
 
 def parse_args(argv=None):
@@ -35,8 +48,8 @@ def parse_args(argv=None):
                          "(default: latest)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no_mesh", action="store_true",
-                    help="accepted for the JAX CLI's sake; no effect (one "
-                         "GPU, no device mesh)")
+                    help="one process, no process group: refuses a launch "
+                         "with WORLD_SIZE > 1")
     ap.add_argument("--train_cameras", action="store_true",
                     help="jointly optimize per-image camera poses, from the "
                          "scene's cameras_linear_init.npz (the ground-truth "
@@ -103,7 +116,15 @@ def setup(argv=None):
     if args.platform != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --platform "
                            "cpu to run on the CPU")
-    device = torch.device("cpu" if args.platform == "cpu" else "cuda")
+    if args.no_mesh:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError("--no_mesh runs one process, and this launch "
+                             f"has WORLD_SIZE={os.environ['WORLD_SIZE']}")
+        device = torch.device("cpu" if args.platform == "cpu" else "cuda")
+    else:
+        # joins the launcher's process group, if there is one
+        device = init_distributed(
+            device="cpu" if args.platform == "cpu" else None)
     torch.backends.cuda.matmul.allow_tf32 = args.matmul_precision != "highest"
 
     from ..config import MVSDFConfig, TrainConfig
@@ -132,6 +153,14 @@ def setup(argv=None):
         stamp = args.timestamp
     else:
         stamp = datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    if dist.is_initialized() and rank() == 0:
+        print(f"process group: backend {dist.get_backend()}, world size "
+              f"{world_size()}, rank 0 on {device}")
+    if world_size() > 1:
+        # every rank takes rank 0's experiment folder
+        box = [stamp]
+        dist.broadcast_object_list(box, src=0)
+        stamp = box[0]
     exp_dir = os.path.join(exp_base, stamp)
     os.makedirs(exp_dir, exist_ok=True)
 
@@ -163,12 +192,15 @@ def setup(argv=None):
         cap = auto_fallback_cascade(obj_frac, intersect_frac=isect,
                                     fill_misses=args.keep_fill)
         march_sched = auto_march_schedule(obj_frac, intersect_frac=isect)
-        sup = () if args.no_supervised_compact else \
+        # as in the JAX package, the supervised compaction is a
+        # single-device optimisation: off when several ranks run
+        sup = () if args.no_supervised_compact or world_size() > 1 else \
             auto_supervised_cascade(intersect_frac=isect)
-        print(f"fallback capacity cascade: {cap}, march schedule "
-              f"{march_sched}, supervised cascade {sup} "
-              f"(object mask frac {obj_frac:.3f}, "
-              f"sphere-intersect frac {isect:.3f})")
+        if rank() == 0:
+            print(f"fallback capacity cascade: {cap}, march schedule "
+                  f"{march_sched}, supervised cascade {sup} "
+                  f"(object mask frac {obj_frac:.3f}, "
+                  f"sphere-intersect frac {isect:.3f})")
         tr = _replace(model.tracer, sampler_capacity_frac=0.25,
                       fill_capacity_frac=0.5, fallback_capacity_frac=cap,
                       march_compact_schedule=march_sched)
@@ -192,3 +224,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

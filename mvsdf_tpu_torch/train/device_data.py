@@ -9,11 +9,17 @@ device. The gather indexes the same source arrays with the same indices as
 ``SceneData.get_batch``, so the batch is the same element for element. Its
 ``pose`` is the ground truth; under camera optimisation the training step
 puts the (B, 7) rows of the batch's images in its place.
+
+Data parallel (``parallel/``): every rank holds the whole cache and draws
+the same pixel subset; ``gather`` keeps the rank's slice of it for the
+per-ray tensors (uv, object_mask, rgb), and the per-image ones stay whole.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel import host_ray_slice
 
 
 class DeviceSceneCache:
@@ -46,7 +52,9 @@ class DeviceSceneCache:
 
     def gather(self, indices: torch.Tensor, sel: torch.Tensor) -> dict:
         """indices (B,) image ids, sel (P,) pixel ids, int64 on the device
-        -> the batch dict the training step consumes."""
+        -> the batch dict the training step consumes, with this rank's
+        share of the P rays."""
+        sel = sel[host_ray_slice(sel.shape[0])]
         B, P = indices.shape[0], sel.shape[0]
         bi = indices[:, None]
         batch = {

@@ -19,6 +19,14 @@ adds no host sync a step beyond the training step's own. With
 ``train_cameras`` the camera poses start from ``scene.pose_init`` and the
 step trains them; mesh snapshots and the full render keep the
 ground-truth poses (``scene.poses``), as the JAX package's do.
+
+Data parallel (``parallel/``, one process a GPU): every rank loads the
+scene, draws the same host plan and the same per-step noise, and trains
+on its share of the rays; the step's all-reduce keeps the replicas equal.
+Rank 0 alone logs and writes ``metrics.jsonl``, checkpoints (the others
+wait at a barrier) and plots; the full render's view is drawn from the
+host RNG on every rank, so the ranks' streams stay in step. Every rank
+restores the same checkpoint.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 from ..config import MVSDFConfig
 from ..data.scene import SceneData
 from ..device import resolve_device
+from ..parallel import barrier, rank, validate_ray_divisibility
 from . import checkpoints as ckpt
 from .device_data import DeviceSceneCache
 from .metrics import MetricsLogger, Throughput, annotate, profile_trace
@@ -48,14 +57,16 @@ class Trainer:
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} > {scene.n_images} "
                 "images: drop-last batching would run zero steps per epoch")
+        validate_ray_divisibility(cfg.train.num_pixels)
         self.cfg = cfg
         self.scene = scene
         self.exp_dir = exp_dir
+        self.main = rank() == 0
         self.ckpt_dir = os.path.join(exp_dir, "checkpoints")
         self.plots_dir = os.path.join(exp_dir, "plots")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         os.makedirs(self.plots_dir, exist_ok=True)
-        self.log = log_fn
+        self.log = log_fn if self.main else (lambda *_: None)
         self.device = resolve_device(device)
         self.steps = {}        # phase_idx -> train step
         # the linear-method camera initialisation where the scene has one,
@@ -178,7 +189,8 @@ class Trainer:
 
     def _log_epoch(self, epoch, rays_per_s, m, **extra):
         cfg = self.cfg
-        self.metrics_log.log(epoch, rays_per_s=rays_per_s, **extra, **m)
+        if self.main:
+            self.metrics_log.log(epoch, rays_per_s=rays_per_s, **extra, **m)
         self.log(
             f"[{epoch}/{cfg.train.nepochs}] loss={m['loss']:.4f} "
             f"rgb={m['rgb_loss']:.4f} eik={m['eikonal_loss']:.4f} "
@@ -189,26 +201,32 @@ class Trainer:
 
     def save(self, epoch: int):
         t0 = time.perf_counter()
-        ckpt.save_checkpoint(self.ckpt_dir, epoch, self.state, epoch,
-                             rng_state=self.rng.bit_generator.state,
-                             generator=self.generator)
+        if self.main:
+            ckpt.save_checkpoint(self.ckpt_dir, epoch, self.state, epoch,
+                                 rng_state=self.rng.bit_generator.state,
+                                 generator=self.generator)
+        barrier()
         self.timings["save_ms"].append((time.perf_counter() - t0) * 1e3)
 
     def plot(self, epoch: int, resolution: int = 100, full: bool = False,
              chunk_pixels: int = 10000):
         """Periodic mesh snapshot (analog of plots.get_surface_trace,
         ref idr_train.py:246-247): the plain SDF field on a grid, its
-        surface (the C++ triangulator) as an OBJ and an HTML scene; with
-        full=True also renders one full view through the eval-mode renderer
-        in fixed chunks of rays and writes it beside the ground truth (ref
-        plot_epoch full)."""
+        surface (the C++ triangulator) as an OBJ, a static scene snapshot
+        PNG and an HTML scene; with full=True also renders one full view
+        through the eval-mode renderer in fixed chunks of rays and writes
+        it beside the ground truth (ref plot_epoch full). Rank 0 plots; the
+        view is drawn on every rank."""
         from ..eval.html_viewer import write_scene_html
         from ..eval.marching import extract_mesh
         from ..eval.mesh import save_obj
-        from ..eval.plots import plot_image_grid
+        from ..eval.plots import plot_image_grid, plot_scene_snapshot
         from ..fields.sdf import sdf_apply
         from ..rendering.renderer import render_view
 
+        idx = int(self.rng.integers(self.scene.n_images)) if full else None
+        if not self.main:
+            return
         net = self.state.net
         t0 = time.perf_counter()
         verts, faces = extract_mesh(lambda x: sdf_apply(net.implicit, x),
@@ -217,6 +235,9 @@ class Trainer:
         if len(faces):
             save_obj(os.path.join(self.plots_dir, f"surface_{epoch}.obj"),
                      verts, faces)
+            plot_scene_snapshot(
+                os.path.join(self.plots_dir, f"scene_{epoch}.png"),
+                verts, faces, poses=self.scene.poses)
             write_scene_html(
                 os.path.join(self.plots_dir, f"scene_{epoch}.html"),
                 verts, faces, poses=self.scene.poses,
@@ -225,7 +246,6 @@ class Trainer:
 
         if full:
             t0 = time.perf_counter()
-            idx = int(self.rng.integers(self.scene.n_images))
             c = self.cache
             rgb = render_view(self.cfg.model, net, c.uv,
                               c.intrinsics[idx:idx + 1],
@@ -244,7 +264,8 @@ class Trainer:
         cfg = self.cfg
         self.throughput.reset()
         prof = profile_trace(self.profile_dir) if (
-            self.profile_dir and self.profile_epochs > 0) else None
+            self.profile_dir and self.profile_epochs > 0 and self.main) \
+            else None
         prof_remaining = self.profile_epochs
         if prof is not None:
             prof.__enter__()

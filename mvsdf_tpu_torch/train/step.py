@@ -13,6 +13,14 @@
   ``learning_rate_cam``. As in the JAX package, the clip and the
   non-finite skip apply to the field's gradients only, so a non-finite
   batch still moves the poses.
+
+Data parallel (``parallel/``): each rank's batch holds its share of the
+ray axis and its losses are its share of the global terms
+(``supervision/losses``). The step sums the ranks' gradients (the pose
+gradients too) and their metric terms in one all-reduce, before the clip,
+so the clip, the non-finite skip and Adam see the global gradient and its
+norm on every rank, take the same branch and keep the replicas equal.
+After a step each parameter's ``.grad`` holds the gradient Adam applied.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from ..device import resolve_device
 from ..fields.network import MVSDFNetwork
 from ..fields.radiance import init_render
 from ..fields.sdf import init_implicit
+from ..parallel import sum_, world_size
 from ..rendering.renderer import render_forward
 from ..supervision.losses import total_loss
 from .cameras_opt import (SparseAdamState, init_sparse_adam,
@@ -133,6 +142,12 @@ def make_train_step(cfg: MVSDFConfig, phase_idx: int):
         grads = torch.autograd.grad(lt.loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        # this rank's share of each metric: the terms, and its hits over
+        # the global ray count
+        hits = out.network_object_mask.float()
+        shares = torch.stack([t.detach() for t in lt] + [
+            hits.sum() / (hits.numel() * world_size())])
+        sum_(grads + [shares])
         if cameras:
             params.pop()
             pose_grads = grads.pop()
@@ -145,7 +160,6 @@ def make_train_step(cfg: MVSDFConfig, phase_idx: int):
             p.grad = g
         lr = state.optimizer.param_groups[0]["lr"]
         state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
         if cameras:
             touched = torch.zeros(state.pose_vecs.shape[0], dtype=torch.bool,
                                   device=state.pose_vecs.device)
@@ -153,10 +167,8 @@ def make_train_step(cfg: MVSDFConfig, phase_idx: int):
             state.cam_opt, state.pose_vecs = sparse_adam_step(
                 state.cam_opt, state.pose_vecs, pose_grads, touched,
                 cfg.train.learning_rate_cam)
-        metrics = {name: getattr(lt, name).detach() for name in lt._fields}
-        metrics.update(grad_norm=gnorm.detach(),
-                       lr=torch.tensor(lr),
-                       hit_frac=out.network_object_mask.float().mean())
+        metrics = dict(zip(lt._fields + ("hit_frac",), shares))
+        metrics.update(grad_norm=gnorm.detach(), lr=torch.tensor(lr))
         return metrics
 
     return step

@@ -560,3 +560,122 @@ def test_converter_cli_on_the_card_equals_the_cpu(cuda, tmp_path):
     ca, cb = (np.load(os.path.join(d, "cameras_hd.npz")) for d in (a, b))
     for key in cb.files:
         np.testing.assert_array_equal(ca[key], cb[key])
+
+
+@pytest.mark.cuda
+def test_exported_renderer_loads_on_the_card(cuda, tmp_path):
+    """The serving export traced on the CPU, loaded onto the card through
+    move_to_device_pass, equals the live eval render of the plain field
+    (the gathered trace, autograd's normals) on the card: hit masks on
+    0.99 of the rays at least, rgb within 1e-4 where they agree; and it
+    serves a second checkpoint through the same artifact."""
+    from mvsdf_tpu_torch.config import ModelConfig, MVSDFConfig
+    from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
+    from mvsdf_tpu_torch.eval import export
+    from mvsdf_tpu_torch.fields.radiance import RenderConfig
+    from mvsdf_tpu_torch.rendering.renderer import render_forward
+    from mvsdf_tpu_torch.train.step import init_params
+    cfg = MVSDFConfig(model=ModelConfig(
+        implicit=t_sdf.ImplicitConfig(**SMALL),
+        render=RenderConfig(feature_vector_size=16, dims=(64, 64))))
+    chunk = 512
+    cpu_params = init_params(cfg, seed=0, device="cpu").state_dict()
+    blob = export.export_renderer(cfg, cpu_params, chunk=chunk,
+                                  platforms=("cpu", "cuda"), device="cpu")
+    path = tmp_path / "renderer.pt2"
+    path.write_bytes(blob)
+    served = export.load_renderer(str(path), device=cuda)
+    sc = scene_to_torch(make_scene(n_images=1, n_pix=chunk, feat_ch=16),
+                        cuda)
+    view = {k: sc[k] for k in ("uv", "intrinsics", "pose", "object_mask")}
+    for seed in (0, 7):
+        net = init_params(cfg, seed=seed, device=cuda)
+        with torch.no_grad():
+            got = served(net.state_dict(), view["uv"], view["intrinsics"],
+                         view["pose"], view["object_mask"].bool())[0]
+            live = render_forward(cfg.model, net, view, training=False)
+        hit = (got != 1.0).any(-1)
+        agree = hit == live.network_object_mask[0]
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+        assert 0.05 < hit.float().mean().item() < 0.95
+        assert agree.float().mean().item() >= 0.99
+        assert (got - live.rgb_values[0])[agree].abs().max().item() <= 1e-4
+
+
+DDP_ARM = r"""
+import os, sys
+import numpy as np, torch
+from mvsdf_tpu_torch.config import ModelConfig, MVSDFConfig, TrainConfig
+from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
+from mvsdf_tpu_torch.fields.radiance import RenderConfig
+from mvsdf_tpu_torch.fields.sdf import ImplicitConfig
+from mvsdf_tpu_torch.parallel import host_ray_slice, init_distributed
+from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
+
+dev = init_distributed(sys.argv[2] or None)
+cfg = MVSDFConfig(
+    model=ModelConfig(
+        implicit=ImplicitConfig(feature_vector_size=16, dims=(64,) * 4,
+                                skip_in=(2,)),
+        render=RenderConfig(feature_vector_size=16, dims=(64, 64)),
+        use_pallas_trace=True),
+    train=TrainConfig(batch_size=2, num_pixels=512))
+batch = scene_to_torch(make_scene(n_images=2, n_pix=512, feat_ch=16), dev)
+sl = host_ray_slice(512)
+for k in ("uv", "object_mask", "rgb"):
+    batch[k] = batch[k][:, sl].contiguous()
+state = init_train_state(cfg, seed=0, device=dev)
+m = make_train_step(cfg, phase_idx=1)(
+    state, batch, cfg.schedule.weights(0.3),
+    torch.Generator(device=dev).manual_seed(0))
+out = {"m:" + k: float(v) for k, v in m.items()}
+for k, p in state.net.named_parameters():
+    out["p:" + k] = p.detach().cpu().numpy()
+    out["g:" + k] = p.grad.cpu().numpy()
+np.savez(os.path.join(sys.argv[1], f"{os.environ.get('RANK', 'one')}.npz"),
+         **out)
+if torch.distributed.is_initialized():
+    torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
+    """One phase-B step (the trace through sdf_mlp) in two gloo processes
+    on cuda:0, each with half of the rays, against the step in one
+    process: the ranks' parameters equal to the bit, the loss terms within
+    1e-4 relative and each gradient tensor within 2e-3 of its largest
+    entry (the step parity's tolerances), equal hit fractions."""
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for env in ({}, *({"RANK": str(r), "WORLD_SIZE": "2",
+                       "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)} for r in range(2))):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DDP_ARM, str(tmp_path), "gloo"],
+            env=dict(os.environ, PYTHONPATH=repo, **env),
+            stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-4000:]
+    one, r0, r1 = (dict(np.load(tmp_path / f"{n}.npz"))
+                   for n in ("one", "0", "1"))
+    for k in r0:
+        if k.startswith("p:"):
+            np.testing.assert_array_equal(r0[k], r1[k], k)
+    assert r0["m:hit_frac"] == one["m:hit_frac"]
+    assert 0.05 < one["m:hit_frac"] < 0.95
+    for k in ("loss", "rgb_loss", "eikonal_loss", "surf_loss",
+              "feat_loss"):
+        assert abs(r0["m:" + k] - one["m:" + k]) <= \
+            1e-4 * abs(one["m:" + k]) + 1e-7, k
+    for k in one:
+        if k.startswith("g:"):
+            scale = max(np.abs(one[k]).max(), 1e-12)
+            assert np.abs(r0[k] - one[k]).max() <= 2e-3 * scale, k

@@ -143,3 +143,33 @@ def test_synthetic_scene_matches_the_jax_fixture():
     assert ours.keys() == theirs.keys()
     for k in ours:
         np.testing.assert_array_equal(ours[k], theirs[k], k)
+
+
+def test_the_data_parallel_export_and_figure_modules_are_scanned():
+    """The scans above cover the data-parallel, export and figure modules
+    of the port, and importing them alone loads no JAX, no JAX package and
+    no matplotlib."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    mods = ("parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharding.py", "eval/export.py", "eval/plots.py")
+    for mod in mods:
+        assert os.path.join("mvsdf_tpu_torch", mod) in files, mod
+    names = ["mvsdf_tpu_torch." + m[:-3].replace("/", ".").replace(
+        ".__init__", "") for m in mods]
+    code = ("import sys, importlib\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from mvsdf_tpu_torch.eval.plots import (plot_depth_maps, "
+            "plot_scene_snapshot)\n"
+            "from mvsdf_tpu_torch.eval.export import (export_renderer, "
+            "load_renderer, make_render_fn, main)\n"
+            "from mvsdf_tpu_torch.parallel import (init_distributed, "
+            "world_size, rank, DATA_AXIS, host_ray_slice, "
+            "validate_ray_divisibility, sum_counts, sum_)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{('jax', 'mvsdf_tpu') + IMAGE_LIBRARIES!r}])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
