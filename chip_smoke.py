@@ -7,7 +7,9 @@ the checkpoint through the eval CLI, does both again with camera
 optimisation, trims the mesh, runs the bench step through the fused value
 + gradient, converts a Vis-MVSNet directory and trains on it, trains data
 parallel over two processes, exports the renderer for serving, draws the
-figures, and prints what it measured.
+figures, trains the shaded scene's 600-epoch capstone and holds its
+quality to the JAX package's bars, runs the multi-scan suite on two
+synthetic scans, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -114,9 +116,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
   15. figures     the scene snapshot of phase 8's mesh with the 49 cameras,
                   and the depth maps of 8 views: PNGs that decode to the
                   expected shapes and are not blank; their seconds
-Every kernel count is set to 0 just before each of phases 3-15 and read
-just after it. The line before the last is a JSON object listing each kernel;
-the last is {"ok": true, "device": {...}}. Without a GPU it exits non-zero
+  16. validation  the trained-quality capstone (validation.full_training)
+                  in this process: 600 epochs of the shaded scene (12
+                  views at 96x96, 11 trained), B=8 x P=4096, full width,
+                  seed 0, the trace through sdf_mlp; its ms/step and
+                  rays/s by 50-epoch window, the sdf_mlp launches in
+                  training and in the 160^3 grid (both gated > 0, no other
+                  kernel), and its chamfer, held-out PSNR and indicator
+                  accuracy held to the JAX package's reference bars
+                  (validation/quality_pin.REFERENCE_BARS); the distance
+                  from the port's own pin is printed
+  17. suite       two shaded scans (scan24, scan37; 12 views, 96x96
+                  images, 48x48 depths) written as scene directories, then
+                  validation.dtu_suite in a subprocess: the training CLI
+                  (--pallas, 5 epochs), the eval CLI (128^3 grid,
+                  rendering PSNR) and the trimming CLI (--thresh auto) on
+                  each, every one in a process of its own; gates every
+                  CLI's success, SUITE.json's two rows with a PSNR and the
+                  reference columns, and logs that name the port's three
+                  CLIs alone
+Every kernel count is set to 0 just before each of phases 3-16 and read
+just after it (phase 17's kernels run in the CLIs' own processes). The
+line before the last is a JSON object listing each kernel; the last is
+{"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
 """
 import contextlib
@@ -228,6 +250,19 @@ DDP_TIMEOUT_S = 300
 EXPORT_CHUNK = 10000
 EXPORT_AGREE, EXPORT_TOL = 0.999, 1e-4
 DEPTH_VIEWS = 8
+# the validation phase: the 600-epoch capstone at full width through the
+# kernels, seed 0, gated by the JAX package's quality bars
+# (validation/quality_pin.REFERENCE_BARS)
+VALIDATION_ARGS = ("--epochs", "600", "--seed", "0")
+# the suite phase: two shaded scans written as scene directories, then the
+# suite's training, eval and trimming CLIs on each
+SUITE_SCANS = ("scan24", "scan37")
+SUITE_VIEWS, SUITE_IMG, SUITE_DEPTH = 12, 96, 48
+SUITE_ARGS = ("--pallas", "--allow_random_features", "--nepoch", "4",
+              "--resolution", "128", "--meshcut_thresh", "auto")
+SUITE_CLIS = ("mvsdf_tpu_torch.train.cli", "mvsdf_tpu_torch.eval.cli",
+              "mvsdf_tpu_torch.meshcut.cli")
+SUITE_TIMEOUT_S = 600
 
 
 def log(msg):
@@ -2031,6 +2066,110 @@ def figures_phase(tmp, mesh, trainer):
         raise AssertionError("a figure is blank or of the wrong shape")
 
 
+def validation_phase(tmp):
+    """Phase 16: the 600-epoch three-phase capstone on the shaded scene,
+    in this process, at full width through sdf_mlp; its summary held to
+    the JAX package's reference bars. Returns (summary, launches)."""
+    from mvsdf_tpu_torch.validation import full_training as ft
+    from mvsdf_tpu_torch.validation import quality_pin as qp
+    args = ft.parse_args([*VALIDATION_ARGS, "--out",
+                          os.path.join(tmp, "validation")])
+    zero_counts()
+    t0 = time.perf_counter()
+    summary, stats = ft.run(args, log=lambda m: log(f"[validation] {m}"))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    clean = [w[1] for w in stats["windows"] if w[3]] or [float("nan")]
+    log(f"[validation] ms/step by {ft.WIN}-epoch window (a * holds a "
+        f"phase's first step): " + " ".join(
+            f"{w[1]:.1f}{'' if w[3] else '*'}" for w in stats["windows"]))
+    log(f"[validation] rays/s by window: " + " ".join(
+        f"{w[2]:.0f}" for w in stats["windows"]))
+    log(f"[validation] {args.epochs} steps in {stats['train_s']:.1f} s, "
+        f"clean windows {min(clean):.1f}-{max(clean):.1f} ms/step; "
+        f"{ft.BOUNDS} "
+        f"{args.resolution}^3 grid {stats['grid_s']:.2f} s; phase "
+        f"{wall:.1f} s; sdf_mlp launches {summary['sdf_mlp_launches']} "
+        f"({summary['sdf_mlp_launches']['train'] / args.epochs:.2f} a "
+        f"step), all counts {launches}")
+    log(f"[validation] summary {json.dumps(summary)}")
+    n = summary["sdf_mlp_launches"]
+    if min(n["train"], n["grid"]) == 0 or \
+            sum(n.values()) != launches["sdf_mlp"]:
+        raise AssertionError(f"the validation did not run through sdf_mlp "
+                             f"in training and in the grid: {n}, "
+                             f"{launches}")
+    if any(launches[k] for k in ("sdf_mlp_xyz", "secant", "sphere_march")):
+        raise AssertionError(f"the validation launched another kernel: "
+                             f"{launches}")
+    drift = qp.gate(summary, bars=False)
+    log(f"[validation] the port's pin (quality_pin.PIN): "
+        f"{'; '.join(drift) if drift else 'inside'}")
+    misses = qp.gate(summary, pin=False)
+    if misses:
+        raise AssertionError("the validation misses the JAX reference "
+                             "bars: " + "; ".join(misses))
+    log(f"[validation] inside the JAX reference bars: " + ", ".join(
+        f"{k} {summary[k]} {op} {lim:g}"
+        for k, (op, lim) in qp.REFERENCE_BARS.items()))
+    return summary, launches
+
+
+def suite_phase(tmp):
+    """Phase 17: two shaded scans written as scene directories, then the
+    suite (in a subprocess) trains, evaluates and trims each through the
+    port's CLIs, each in a process of its own."""
+    import math
+    from mvsdf_tpu_torch.data.synthetic import write_shaded_scene_dir
+    from mvsdf_tpu_torch.validation import dtu_suite
+    root = os.path.join(tmp, "suite")
+    data = os.path.join(root, "data")
+    for scan in SUITE_SCANS:
+        write_shaded_scene_dir(os.path.join(data, scan, "imfunc4"),
+                               views=SUITE_VIEWS, img_hw=SUITE_IMG,
+                               depth_hw=SUITE_DEPTH)
+    ids = ",".join(str(dtu_suite.scan_id(s)) for s in SUITE_SCANS)
+    cmd = [sys.executable, "-m", "mvsdf_tpu_torch.validation.dtu_suite",
+           "--data_root", data, "--scans", ids, *SUITE_ARGS]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=SUITE_TIMEOUT_S,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    for line in res.stdout.strip().splitlines():
+        log(f"[suite] {line}")
+    if res.returncode != 0 or "FAILED" in res.stdout:
+        raise AssertionError(f"the suite failed (rc {res.returncode}): "
+                             f"{res.stderr[-3000:]}")
+    with open(os.path.join(root, "SUITE.json")) as f:
+        suite = json.load(f)
+    rows = {r["scan"]: r for r in suite["scans"]}
+    for scan in SUITE_SCANS:
+        r = rows.get(scan, {})
+        ref = dtu_suite.REFERENCE_TABLE[dtu_suite.scan_id(scan)]
+        if not isinstance(r.get("psnr"), float) or \
+                not math.isfinite(r["psnr"]) or \
+                (r.get("ref_chamfer"), r.get("ref_psnr")) != ref:
+            raise AssertionError(f"SUITE.json has no full row for {scan}: "
+                                 f"{r}")
+        with open(os.path.join(root, f"suite_{scan}.log")) as f:
+            mods = [line.split(" -m ", 1)[1].split()[0]
+                    for line in f if line.startswith("$ ")]
+        if tuple(mods) != SUITE_CLIS:
+            raise AssertionError(f"suite_{scan}.log ran {mods}, not "
+                                 f"{SUITE_CLIS}")
+        evaldir = os.path.join(root, "evals", scan)
+        if not any(f.endswith("_trimmed.obj") for f in os.listdir(evaldir)):
+            raise AssertionError(f"no trimmed mesh for {scan}")
+        log(f"[suite] {scan}: psnr {r['psnr']} (reference {ref[1]}), train "
+            f"{r['train_s']} s, eval {r['eval_s']} s; CLIs {mods}")
+    if not os.path.exists(os.path.join(root, "SUITE.md")):
+        raise AssertionError("the suite wrote no SUITE.md")
+    log(f"[suite] {len(SUITE_SCANS)} scans of {SUITE_VIEWS} views "
+        f"{SUITE_IMG}x{SUITE_IMG} in {wall:.1f} s (suite wall "
+        f"{suite['wall_s']} s), mean psnr {suite['mean_psnr']}")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2125,6 +2264,14 @@ def main():
         export_phase(tmp, run["exps"], trainer, dev)
         figures_phase(tmp, mesh, trainer)
         del trainer
+        # 16. the trained-quality validation; 17. the suite on two scans
+        t0 = time.perf_counter()
+        validation_phase(tmp)
+        log(f"[validation] phase 16 {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        suite_phase(tmp)
+        log(f"[suite] phase 17 {time.perf_counter() - t0:.1f} s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")

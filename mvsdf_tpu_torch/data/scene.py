@@ -59,6 +59,29 @@ def resize_bilinear(imgs: torch.Tensor, size) -> torch.Tensor:
                          align_corners=False, antialias=False)
 
 
+def frozen_features(net, rgbs, size) -> torch.Tensor:
+    """Head [2] of the frozen FeatExt ``net`` on images ``rgbs`` (a
+    sequence of (3, H, W) float32 arrays in [-1, 1]): resized bilinearly to
+    ``size`` (H', W') where they differ, ImageNet-normalised, on the net's
+    device, FEAT_BATCH views at a time, TF32 off. Returns (N, 32, H'/2,
+    W'/2) on that device."""
+    dev = next(net.parameters()).device
+    mean = torch.from_numpy(IMAGENET_MEAN).to(dev)[:, None, None]
+    std = torch.from_numpy(IMAGENET_STD).to(dev)[:, None, None]
+    out = None
+    with torch.no_grad(), tf32_off():
+        for i in range(0, len(rgbs), FEAT_BATCH):
+            x = torch.from_numpy(np.stack(rgbs[i:i + FEAT_BATCH])).to(dev)
+            if x.shape[-2:] != tuple(size):
+                x = resize_bilinear(x, size)
+            f2 = net((x / 2 + 0.5 - mean) / std)[2]
+            if out is None:
+                out = torch.empty((len(rgbs),) + f2.shape[1:],
+                                  dtype=f2.dtype, device=dev)
+            out[i:i + f2.shape[0]] = f2
+    return out
+
+
 class SceneData:
     """Loads a full scene (numpy on the host, features on the device) and
     serves training batches."""
@@ -186,30 +209,16 @@ class SceneData:
             "(synthetic/bring-up scenes only).")
 
     def _compute_features(self, rgbs, feat_params) -> torch.Tensor:
-        """Resize RGB to feat_img_scale x depth res, ImageNet-normalize, run
-        the frozen FeatExt on the device, FEAT_BATCH views at a time, TF32
-        off (ref scene_dataset.py:117-149). feat_params: a FeatExt state
-        dict (reference key names)."""
+        """``frozen_features`` of the images at feat_img_scale x the depth
+        maps' size (ref scene_dataset.py:117-149). feat_params: a FeatExt
+        state dict (reference key names)."""
         net = make_feat_ext(self._feat_state(feat_params), self.device)
         h, w = self.depths.shape[-2:]
-        th, tw = h * self.feat_img_scale, w * self.feat_img_scale
-        dev = self.device
-        mean = torch.from_numpy(IMAGENET_MEAN).to(dev)[:, None, None]
-        std = torch.from_numpy(IMAGENET_STD).to(dev)[:, None, None]
-        out = None
         t0 = time.perf_counter()
-        with torch.no_grad(), tf32_off():
-            for i in range(0, len(rgbs), FEAT_BATCH):
-                x = torch.from_numpy(np.stack(rgbs[i:i + FEAT_BATCH])).to(dev)
-                if x.shape[-2:] != (th, tw):
-                    x = resize_bilinear(x, (th, tw))
-                f2 = net((x / 2 + 0.5 - mean) / std)[2]
-                if out is None:
-                    out = torch.empty((len(rgbs),) + f2.shape[1:],
-                                      dtype=f2.dtype, device=dev)
-                out[i:i + f2.shape[0]] = f2
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        out = frozen_features(net, rgbs, (h * self.feat_img_scale,
+                                          w * self.feat_img_scale))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.timings["featext_s"] = time.perf_counter() - t0
         return out
 

@@ -12,9 +12,19 @@ the origin, a unit-scale scene (size=2, center=0), depth maps of a sphere.
   optimisation.
 - ``write_vismvsnet_dir``: a Vis-MVSNet output directory, the input of
   ``data/convert.py``.
+- ``make_scene_fibonacci`` and ``make_scene_shaded``: the coherent scenes
+  of the JAX package's ``tests/golden/scene_fixtures.py`` (cameras on a
+  fibonacci sphere, then a frontal cap looking at a textured lambertian
+  sphere on a ground plane, rendered by ``render_shaded_sphere``), with
+  frozen FeatExt features computed from the rendered images on a device;
+  the scene ``validation/full_training.py`` trains on.
+- ``write_shaded_scene_dir`` and ``python -m mvsdf_tpu_torch.data.synthetic``:
+  that scene as a scene directory, the counterpart of the JAX repo's
+  ``scripts/make_synthetic_scene.py`` (same flags, same files).
 """
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
@@ -342,3 +352,324 @@ def write_vismvsnet_dir(root, n_views=3, hw=16, image_ext=".png",
     pts = rng.uniform(-0.5, 0.5, (500, 3))
     write_ply_points(os.path.join(root, "cut.ply"), pts, binary=False)
     return np.stack(cams), pts
+
+
+# ---------------------------------------------------------------------------
+# The coherent shaded scene (counterpart of the JAX package's
+# tests/golden/scene_fixtures.py, function for function)
+# ---------------------------------------------------------------------------
+
+def make_scene_fibonacci(n=10, img_hw=48, depth_hw=24, n_pix=192,
+                         feat_ch=16, sphere_radius=0.45, focal=84.0,
+                         seed=21):
+    """``make_scene`` with n cameras on a fibonacci sphere (full angular
+    coverage) at distance 2.2 and depth maps of the analytic sphere."""
+    golden = (1 + 5 ** 0.5) / 2
+    idx = np.arange(n)
+    z = 1 - 2 * (idx + 0.5) / n
+    th = 2 * np.pi * idx / golden
+    r = np.sqrt(1 - z * z)
+    cam_pos = 2.2 * np.stack([r * np.cos(th), z * 0.8, r * np.sin(th)], -1)
+
+    sc = make_scene(n_images=n, n_src=2, img_hw=img_hw, depth_hw=depth_hw,
+                    n_pix=n_pix, seed=seed, feat_ch=feat_ch,
+                    sphere_radius=sphere_radius, focal=focal)
+    f = focal
+    extr = np.stack([look_at_extrinsic(p) for p in cam_pos])
+    K = np.array([[f, 0, img_hw / 2], [0, f, img_hw / 2], [0, 0, 1.0]])
+    Kd = K.copy()
+    Kd[:2] *= depth_hw / img_hw
+    sc["pose"] = np.stack([np.linalg.inv(e) for e in extr]).astype(
+        np.float32)
+    intr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    intr[:, :3, :3] = K
+    sc["intrinsics"] = intr.astype(np.float32)
+    dc = np.zeros((n, 1, 2, 4, 4), np.float32)
+    for i in range(n):
+        dc[i, 0, 0] = extr[i]
+        dc[i, 0, 1, :3, :3] = Kd
+    sc["depth_cams"] = dc
+    h = w = depth_hw
+    depths = np.zeros((n, 1, 1, h, w), np.float32)
+    for i in range(n):
+        ys, xs = np.mgrid[0:h, 0:w]
+        pix = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)],
+                       -1).reshape(-1, 3).astype(np.float64)
+        dcam = (np.linalg.inv(Kd) @ pix.T).T
+        dw = dcam @ extr[i][:3, :3]
+        dw /= np.linalg.norm(dw, axis=-1, keepdims=True)
+        o = cam_pos[i]
+        b = dw @ o
+        disc = b ** 2 - (o @ o - sphere_radius ** 2)
+        tq = -b - np.sqrt(np.maximum(disc, 0))
+        zz = tq * dcam[:, 2] / np.linalg.norm(dcam, axis=-1)
+        depths[i, 0, 0] = np.where(disc > 0, zz, 0).reshape(h, w)
+    sc["depths"] = depths
+    return sc
+
+
+def _sphere_texture(p, radius):
+    """View-independent procedural albedo on the sphere surface, in
+    [-1, 1]; p (..., 3) world points."""
+    n = p / np.maximum(np.linalg.norm(p, axis=-1, keepdims=True), 1e-9)
+    r = 0.6 * np.sin(7 * n[..., 0]) * np.cos(5 * n[..., 1])
+    g = 0.6 * np.sin(6 * n[..., 1] + 1.3) * np.cos(4 * n[..., 2])
+    b = 0.6 * np.sin(5 * n[..., 2] + 2.1) * np.cos(6 * n[..., 0])
+    return np.stack([r, g, b], -1)
+
+
+def render_shaded_sphere(cam_pos, extr, K, hw, radius,
+                         light=(0.3, 0.8, 0.5), plane_y=-0.43,
+                         plane_r=0.92):
+    """Analytic lambertian render of the textured sphere resting in a
+    finite checkered ground plane of radius ``plane_r`` at ``plane_y``
+    (the object and the plane form one connected surface). Returns rgb
+    (hw, hw, 3) in [-1, 1] (white where neither is hit), z-depth (hw, hw)
+    (0 = invalid) and the object mask (hw, hw)."""
+    H = W = hw
+    ys, xs = np.mgrid[0:H, 0:W]
+    pix = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)],
+                   -1).reshape(-1, 3).astype(np.float64)
+    dirs_cam = (np.linalg.inv(K) @ pix.T).T
+    dirs_w = dirs_cam @ extr[:3, :3]
+    dirs_w = dirs_w / np.linalg.norm(dirs_w, axis=-1, keepdims=True)
+    o = np.asarray(cam_pos, np.float64)
+    b = dirs_w @ o
+
+    disc = b ** 2 - (o @ o - radius ** 2)
+    t_obj = -b - np.sqrt(np.maximum(disc, 0))
+    hit_obj = (disc > 0) & (t_obj > 0)
+
+    dy = dirs_w[:, 1]
+    t_pl = np.where(np.abs(dy) > 1e-9, (plane_y - o[1]) / dy, -1.0)
+    p_pl = o + t_pl[:, None] * dirs_w
+    hit_pl = (t_pl > 0) & (p_pl[:, 0] ** 2 + p_pl[:, 2] ** 2 <
+                           plane_r ** 2)
+    # the object occludes the plane where both are hit
+    hit_pl = hit_pl & (~hit_obj | (t_pl < t_obj))
+    hit_obj = hit_obj & (~hit_pl)
+
+    t = np.where(hit_obj, t_obj, np.where(hit_pl, t_pl, 0.0))
+    pts = o + t[:, None] * dirs_w
+
+    ldir = np.asarray(light, np.float64)
+    ldir = ldir / np.linalg.norm(ldir)
+    n_obj = pts / np.maximum(np.linalg.norm(pts, axis=-1, keepdims=True),
+                             1e-9)
+    shade_obj = 0.35 + 0.65 * np.maximum(0.0, n_obj @ ldir)
+    rgb_obj = np.clip(_sphere_texture(pts, radius) * shade_obj[:, None],
+                      -1, 1)
+    # the plane: a checker lit by the same light (normal +y)
+    checker = (np.floor(pts[:, 0] * 6) + np.floor(pts[:, 2] * 6)) % 2
+    base = np.where(checker > 0.5, 0.45, -0.1)
+    shade_pl = 0.4 + 0.6 * max(0.0, float(ldir[1]))
+    rgb_pl = np.stack([base * shade_pl + 0.1, base * shade_pl,
+                       base * shade_pl - 0.1], -1)
+    rgb = np.where(hit_obj[:, None], rgb_obj,
+                   np.where(hit_pl[:, None], np.clip(rgb_pl, -1, 1), 1.0))
+    z = t * dirs_cam[:, 2] / np.linalg.norm(dirs_cam, axis=-1)
+    depth = np.where(hit_obj | hit_pl, z, 0.0)
+    return (rgb.reshape(H, W, 3).astype(np.float32),
+            depth.reshape(H, W).astype(np.float32),
+            hit_obj.reshape(H, W))
+
+
+def frontal_cap_positions(n, dist=2.2):
+    """Camera centres of the frontal cap (a DTU-like rig looking down at a
+    table): elevations 20-65 degrees, golden-angle azimuths."""
+    golden = np.pi * (3 - np.sqrt(5))
+    elev = np.deg2rad(np.linspace(20, 65, n))
+    azim = golden * np.arange(n)
+    return dist * np.stack([np.cos(elev) * np.cos(azim), np.sin(elev),
+                            np.cos(elev) * np.sin(azim)], -1)
+
+
+def shaded_features(rgbs, depth_hw, feat_params=None, device=None):
+    """``scene.frozen_features`` of images ``rgbs`` (n, H, W, 3) in
+    [-1, 1] at twice ``depth_hw``, on ``device`` (``cuda`` unless named),
+    by a FeatExt holding ``feat_params`` (a state dict; random from
+    ``np.random.default_rng(0)`` by default). Returns (n, 32, depth_hw,
+    depth_hw) float32 numpy."""
+    from ..device import resolve_device
+    from .featext import init_feat_ext, make_feat_ext
+    from .scene import frozen_features
+    if feat_params is None:
+        feat_params = init_feat_ext(np.random.default_rng(0))
+    net = make_feat_ext(feat_params, resolve_device(device))
+    imgs = [np.ascontiguousarray(r.transpose(2, 0, 1)) for r in rgbs]
+    return frozen_features(net, imgs, (2 * depth_hw, 2 * depth_hw)) \
+        .cpu().numpy()
+
+
+def make_scene_shaded(n=12, img_hw=96, depth_hw=48, n_pix=4096,
+                      sphere_radius=0.45, focal=None, seed=0,
+                      feat_params=None, plane_r=0.92, device=None):
+    """Fully coherent multi-view scene: frontal-cap cameras, analytic
+    lambertian renders of the textured sphere, analytic depth maps, and
+    frozen FeatExt features computed from the rendered images on
+    ``device`` (``cuda`` unless named). The ground-truth surface is the
+    sphere of ``sphere_radius`` at the origin. ``plane_r=0`` removes the
+    ground plane (a mask-tight object-only scene). Besides
+    ``make_scene``'s keys: ``rgb_full`` (n, HW, 3), ``mask_full`` (n, HW)
+    and ``uv_full`` (HW, 2), for the caller's pixel subsets."""
+    if focal is None:
+        focal = 1.3 * img_hw
+    sc = make_scene_fibonacci(n=n, img_hw=img_hw, depth_hw=depth_hw,
+                              n_pix=n_pix, feat_ch=32,
+                              sphere_radius=sphere_radius, focal=focal,
+                              seed=seed)
+    H = W = img_hw
+    h = w = depth_hw
+    Kd = sc["depth_cams"][0, 0, 1, :3, :3].astype(np.float64)
+    K = sc["intrinsics"][0, :3, :3].astype(np.float64)
+
+    extrs = np.stack([look_at_extrinsic(p)
+                      for p in frontal_cap_positions(n)])
+    sc["pose"] = np.stack([np.linalg.inv(e) for e in extrs]).astype(
+        np.float32)
+    dc = np.zeros((n, 1, 2, 4, 4), np.float32)
+    for i in range(n):
+        dc[i, 0, 0] = extrs[i]
+        dc[i, 0, 1, :3, :3] = Kd
+    sc["depth_cams"] = dc
+
+    rgbs, masks = [], []
+    depths = np.zeros((n, 1, 1, h, w), np.float32)
+    for i in range(n):
+        extr = np.linalg.inv(sc["pose"][i].astype(np.float64))
+        cam_pos = sc["pose"][i][:3, 3].astype(np.float64)
+        rgb, _, m = render_shaded_sphere(cam_pos, extr, K, H, sphere_radius,
+                                         plane_r=plane_r)
+        _, z, _ = render_shaded_sphere(cam_pos, extr, Kd, h, sphere_radius,
+                                       plane_r=plane_r)
+        rgbs.append(rgb)
+        masks.append(m)
+        depths[i, 0, 0] = z
+    sc["depths"] = depths
+    feats = shaded_features(rgbs, h, feat_params, device)
+
+    # the two nearest cameras are each view's source views
+    cams = sc["pose"][:, :3, 3]
+    src_idx = []
+    for i in range(n):
+        d = np.linalg.norm(cams - cams[i], axis=1)
+        d[i] = np.inf
+        src_idx.append(np.argsort(d)[:2])
+    # feature cameras: the depth cameras at twice their resolution
+    cams_hd = np.zeros((n, 2, 4, 4), np.float32)
+    for i in range(n):
+        cams_hd[i, 0] = np.linalg.inv(sc["pose"][i])
+        cams_hd[i, 1, :3, :3] = Kd * 2
+        cams_hd[i, 1, 2, 2] = 1.0
+
+    sc["feat"] = feats
+    sc["feat_src"] = np.stack([feats[s] for s in src_idx])
+    sc["cam"] = cams_hd
+    sc["src_cams"] = np.stack([cams_hd[s] for s in src_idx])
+
+    sc["rgb_full"] = np.stack(rgbs).reshape(n, H * W, 3)
+    sc["mask_full"] = np.stack(masks).reshape(n, H * W)
+    uv_full = np.stack(np.meshgrid(np.arange(W), np.arange(H)),
+                       -1).reshape(-1, 2).astype(np.float32)
+    sc["uv_full"] = uv_full
+    rng = np.random.default_rng(seed)
+    sel = rng.permutation(H * W)[:n_pix]
+    sc["uv"] = np.tile(uv_full[sel][None], (n, 1, 1))
+    sc["rgb"] = sc["rgb_full"][:, sel]
+    sc["object_mask"] = sc["mask_full"][:, sel]
+    return sc
+
+
+def write_shaded_scene_dir(out, views=12, img_hw=128, depth_hw=64,
+                           radius=0.45, focal_mult=1.3, plane_r=0.92,
+                           dist=2.2):
+    """Writes the shaded scene to ``out`` in the reference dataset layout:
+    ``image_hd/``, ``mask_hd/`` (PNG), ``depth/*.pfm``, ``cameras_hd.npz``,
+    and in ``out``'s parent ``pair.txt`` (each view's two nearest cameras)
+    and ``cam_*_flow3.txt``. Returns ``out``'s absolute path."""
+    from . import formats
+    from .png import write_png
+    out = os.path.abspath(out)
+    parent = os.path.dirname(out)
+    for sub in ("image_hd", "mask_hd", "depth"):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+
+    n = views
+    H = W = img_hw
+    h = depth_hw
+    f_hd = focal_mult * H
+    K = np.array([[f_hd, 0, W / 2], [0, f_hd, H / 2], [0, 0, 1.0]])
+    Kd = K.copy()
+    Kd[:2] *= h / H
+    cam_pos = frontal_cap_positions(n, dist)
+
+    cam_npz = {}
+    pair = {"id_list": [str(i) for i in range(n)]}
+    for i in range(n):
+        extr = look_at_extrinsic(cam_pos[i])
+        rgb, _, mask = render_shaded_sphere(cam_pos[i], extr, K, H, radius,
+                                            plane_r=plane_r)
+        _, depth, _ = render_shaded_sphere(cam_pos[i], extr, Kd, h, radius,
+                                           plane_r=plane_r)
+        img8 = ((rgb / 2 + 0.5) * 255).clip(0, 255).astype(np.uint8)
+        write_png(os.path.join(out, "image_hd", f"{i:03}.png"), img8)
+        write_png(os.path.join(out, "mask_hd", f"{i:03}.png"),
+                  (mask * 255).astype(np.uint8))
+        formats.write_pfm(os.path.join(out, "depth", f"{i:03}.pfm"),
+                          depth.astype(np.float32))
+
+        P = np.zeros((4, 4), np.float32)
+        P[:3] = K @ extr[:3]
+        P[3, 3] = 1
+        cam_npz[f"world_mat_{i}"] = P
+        cam_npz[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)
+
+        cam = np.zeros((2, 4, 4))
+        cam[0] = extr
+        cam[1][:3, :3] = Kd
+        cam[1][3] = [1.0, 0.01, 256, 1.0 + 0.01 * 255]
+        formats.write_cam(
+            os.path.join(parent, f"cam_{i:08}_flow3.txt"), cam)
+
+        d = np.linalg.norm(cam_pos - cam_pos[i], axis=1)
+        d[i] = np.inf
+        srcs = np.argsort(d)[:2]
+        pair[str(i)] = {"id": str(i), "index": i,
+                        "pair": [str(j) for j in srcs],
+                        "score": [float(10 - k) for k in range(len(srcs))]}
+
+    np.savez(os.path.join(out, "cameras_hd.npz"), **cam_npz)
+    formats.write_pair(os.path.join(parent, "pair.txt"), pair)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="write the shaded synthetic scene (a textured "
+                    "lambertian sphere on a checkered ground plane, "
+                    "frontal-cap cameras, analytic depth maps) as a scene "
+                    "directory")
+    ap.add_argument("--out", required=True,
+                    help="scene directory (parent gets pair.txt + cams)")
+    ap.add_argument("--views", type=int, default=12)
+    ap.add_argument("--img_hw", type=int, default=128)
+    ap.add_argument("--depth_hw", type=int, default=64)
+    ap.add_argument("--radius", type=float, default=0.45)
+    ap.add_argument("--focal_mult", type=float, default=1.3,
+                    help="focal = focal_mult * img_hw; lower = wider FoV "
+                         "(drops the sphere-intersect fraction)")
+    ap.add_argument("--plane_r", type=float, default=0.92,
+                    help="ground-plane radius; 0 disables the plane "
+                         "(mask-tight object-only scene)")
+    ap.add_argument("--dist", type=float, default=2.2,
+                    help="camera distance from the origin")
+    args = ap.parse_args(argv)
+    out = write_shaded_scene_dir(args.out, args.views, args.img_hw,
+                                 args.depth_hw, args.radius, args.focal_mult,
+                                 args.plane_r, args.dist)
+    print(f"wrote {args.views} views to {out} (images {args.img_hw}x"
+          f"{args.img_hw}, depths {args.depth_hw}x{args.depth_hw})")
+
+
+if __name__ == "__main__":
+    main()

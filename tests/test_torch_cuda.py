@@ -679,3 +679,36 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path):
         if k.startswith("g:"):
             scale = max(np.abs(one[k]).max(), 1e-12)
             assert np.abs(r0[k] - one[k]).max() <= 2e-3 * scale, k
+
+
+@pytest.mark.cuda
+def test_validation_capstone_on_the_card(cuda, tmp_path):
+    """validation.full_training at --epochs 30 --resolution 64 on the card
+    (full width, through sdf_mlp), in a process of its own: its summary
+    has the JAX script's keys, finite values, no non-finite epoch, the
+    card's name, and sdf_mlp launches in training and in the grid; it
+    wrote the mesh, the held-out PNGs and the parameters."""
+    import json
+    import subprocess
+    import sys
+    from mvsdf_tpu_torch.validation import full_training as ft
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "v"
+    res = subprocess.run(
+        [sys.executable, "-m", "mvsdf_tpu_torch.validation.full_training",
+         "--epochs", "30", "--resolution", "64", "--out", str(out)],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    assert tuple(summary)[:len(ft.SUMMARY_KEYS)] == ft.SUMMARY_KEYS
+    for k in ft.SUMMARY_KEYS:
+        if k != "supervised_cascade":
+            assert np.isfinite(summary[k]), k
+    assert summary["nonfinite_epochs"] == 0 and summary["mesh_verts"] > 0
+    assert summary["device"] == torch.cuda.get_device_name(0)
+    n = summary["sdf_mlp_launches"]
+    assert n["train"] >= 30 and n["grid"] == 64 // 8, n
+    for f in ("surface.obj", "heldout_pred.png", "heldout_gt.png",
+              "params.pt"):
+        assert (out / f).is_file(), f

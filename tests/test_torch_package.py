@@ -173,3 +173,41 @@ def test_the_data_parallel_export_and_figure_modules_are_scanned():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]", res.stdout
+
+
+def test_the_validation_modules_are_scanned_and_need_a_gpu(tmp_path):
+    """The scans above cover the validation entry points and the shaded
+    scene; importing them alone loads no JAX, no JAX package and no image
+    library; and they run on the GPU unless asked for the CPU."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    mods = ("validation/__init__.py", "validation/full_training.py",
+            "validation/quality_pin.py", "validation/dtu_suite.py",
+            "data/synthetic.py")
+    for mod in mods:
+        assert os.path.join("mvsdf_tpu_torch", mod) in files, mod
+    names = ["mvsdf_tpu_torch." + m[:-3].replace("/", ".").replace(
+        ".__init__", "") for m in mods]
+    code = ("import sys, importlib\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from mvsdf_tpu_torch.validation.full_training import (train, "
+            "evaluate, run, main)\n"
+            "from mvsdf_tpu_torch.validation.quality_pin import gate\n"
+            "from mvsdf_tpu_torch.data.synthetic import (make_scene_shaded, "
+            "write_shaded_scene_dir)\n"
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{('jax', 'mvsdf_tpu', 'tests') + IMAGE_LIBRARIES!r}])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from mvsdf_tpu_torch.data.synthetic import make_scene_shaded
+    from mvsdf_tpu_torch.validation import full_training
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        full_training.main(["--epochs", "1", "--out", str(tmp_path / "v")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_scene_shaded(n=2, img_hw=8, depth_hw=4, n_pix=8)
+    assert not os.path.exists(tmp_path / "v")
