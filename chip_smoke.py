@@ -9,7 +9,8 @@ optimisation, trims the mesh, runs the bench step through the fused value
 parallel over two processes, exports the renderer for serving, draws the
 figures, trains the shaded scene's 600-epoch capstone and holds its
 quality to the JAX package's bars, runs the multi-scan suite on two
-synthetic scans, and prints what it measured.
+synthetic scans, runs the port's bench and driver entry points and checks
+that runs repeat to the bit, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -135,8 +136,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   CLI's success, SUITE.json's two rows with a PSNR and the
                   reference columns, and logs that name the port's three
                   CLIs alone
-Every kernel count is set to 0 just before each of phases 3-16 and read
-just after it (phase 17's kernels run in the CLIs' own processes). The
+  18. bench       the port's bench (python -m mvsdf_tpu_torch.bench) in a
+                  subprocess with the default switches and with
+                  MVSDF_BENCH_MARCH=1 MVSDF_BENCH_INKPE=1
+                  MVSDF_BENCH_SECANT=1: one stdout line each, bench.py's
+                  four keys, a finite positive rate; graft_entry.entry() on
+                  the card: finite outputs of the stated shapes, no kernel;
+                  sdf_mlp and secant at the dry run's width 64 against
+                  their plain versions, then dryrun_multichip(2), both
+                  legs (two gloo ranks and one process on this card, the
+                  JAX dry run's bounds); the frozen features computed
+                  twice and bench_phaseB run twice from seed 0 for 5
+                  steps: equal bits
+Every kernel count is set to 0 just before each of phases 3-16 and 18's
+entry and reproducibility runs, and read just after it (phase 17's
+kernels, and phase 18's bench and dry run, run in processes of their own:
+the bench prints its launches a step, and the dry run's width-64 tiny leg
+supplies the launches of the kernels line's width-64 entries). The
 line before the last is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a GPU it exits non-zero
 and prints no result.
@@ -151,6 +167,11 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# bench_phaseB and bench_phaseB_fused: the configurations of the port's
+# bench (python -m mvsdf_tpu_torch.bench) with its default switches and
+# with MVSDF_BENCH_MARCH=1 MVSDF_BENCH_INKPE=1 MVSDF_BENCH_SECANT=1
+from mvsdf_tpu_torch.bench import bench_config, fused_config
 
 B, P = 8, 4096                 # the bench shapes: 8 images x 4096 rays
 N_KERNEL = 65537               # ragged row count for the SDF-MLP checks
@@ -203,9 +224,10 @@ CAMS_ARGS = ("--pallas", "--allow_random_features", "--train_cameras",
 CAMS_EVAL_ARGS = ("--pallas", "--eval_cameras", "--resolution",
                   str(EVAL_RES))
 TRIM_THRESHOLDS = ("auto", "15")
-# resumed epochs' losses against the first run's, relative: the card's
-# gradient scatters use atomics, so the two runs part by rounding (5.6e-5
-# measured on an H100 at this size)
+# resumed epochs' losses against the first run's, relative (5.6e-5
+# measured on an H100 at this size while the resumed run's frozen features
+# came from nondeterministic cuDNN convolutions; scene.frozen_features now
+# runs them on cuDNN's deterministic algorithms)
 RESUME_RTOL = 1e-3
 LOSSES = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
           "surf_loss")
@@ -263,6 +285,14 @@ SUITE_ARGS = ("--pallas", "--allow_random_features", "--nepoch", "4",
 SUITE_CLIS = ("mvsdf_tpu_torch.train.cli", "mvsdf_tpu_torch.eval.cli",
               "mvsdf_tpu_torch.meshcut.cli")
 SUITE_TIMEOUT_S = 600
+# the bench phase: the bench CLI's time limit, the sdf_mlp rows of the
+# width-64 check (the tiny leg's 2 images x 32 rays x 20 samples), the
+# steps of each reproducibility run, the views and depth size of the
+# features computed twice (the validation scene's)
+BENCH_TIMEOUT_S = 600
+W64_ROWS = 1280
+REPRO_STEPS = 5
+REPRO_VIEWS, REPRO_DEPTH = 12, 48
 
 
 def log(msg):
@@ -292,33 +322,6 @@ def bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
-
-
-def bench_config():
-    """The configuration the JAX package's bench.py builds, in the port."""
-    from mvsdf_tpu_torch.config import MVSDFConfig, TrainConfig
-    cfg = MVSDFConfig(train=TrainConfig(batch_size=B, num_pixels=P))
-    m = cfg.model
-    tracer = dataclasses.replace(
-        m.tracer, fill_misses=False, sampler_capacity_frac=0.25,
-        fill_capacity_frac=0.5, fallback_capacity_frac=(0.0625, 0.09375,
-                                                        0.375),
-        march_compact_schedule=((0, (0.375, 0.5)), (1, (0.1875, 0.25)),
-                                (5, (0.0625, 0.125, 0.25))))
-    model = dataclasses.replace(
-        m, use_pallas_trace=True, tracer=tracer,
-        supervised_compact_frac=(0.375,),
-        implicit=dataclasses.replace(m.implicit, bf16_activations=True))
-    return dataclasses.replace(cfg, model=model)
-
-
-def fused_config():
-    """bench_phaseB_fused: bench.py with MVSDF_BENCH_MARCH=1,
-    MVSDF_BENCH_INKPE=1 and MVSDF_BENCH_SECANT=1, in the port."""
-    cfg = bench_config()
-    return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, use_pallas_march=True, use_pallas_secant=True,
-        pallas_in_kernel_pe=True))
 
 
 def library_chain(net, x):
@@ -2170,6 +2173,176 @@ def suite_phase(tmp):
         f"{suite['wall_s']} s), mean psnr {suite['mean_psnr']}")
 
 
+def run_bench_cli(name, switches):
+    """The port's bench CLI in a subprocess with ``switches`` set: its one
+    stdout line, parsed, and its stderr logged. Requires rc 0, exactly one
+    line of bench.py's four keys and a finite positive rate."""
+    import math
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mvsdf_tpu_torch.bench"],
+                         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                                            **switches),
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in res.stderr.strip().splitlines()[-12:]:
+        log(f"[bench {name}] {line}")
+    lines = res.stdout.splitlines()
+    log(f"[bench {name}] stdout ({wall:.1f} s, rc {res.returncode}): "
+        f"{lines}")
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"the bench ({name}) failed or printed "
+                             f"{len(lines)} lines: {res.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    if list(line) != ["metric", "value", "unit", "vs_baseline"] or \
+            line["metric"] != "train_rays_per_s_per_chip" or \
+            not math.isfinite(line["value"]) or line["value"] <= 0:
+        raise AssertionError(f"the bench ({name}) printed {line}")
+    return line
+
+
+def check_width64(dev):
+    """Kernels 1 and 3 at the dry run's tiny width (SDF 3 x 64, skip at 2,
+    4 secant steps) against their plain versions, sdf_mlp on W64_ROWS
+    points (TOL) and the secant on the brackets of the tiny scene's rays
+    (check_secant's gate). Returns their kernels-line entries."""
+    import torch
+    from mvsdf_tpu_torch import graft_entry
+    from mvsdf_tpu_torch.data.synthetic import scene_to_torch
+    from mvsdf_tpu_torch.fields.embedder import positional_encoding
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.train.step import init_params
+    cfg, sizes = graft_entry.leg(2, False)
+    icfg, tcfg = cfg.model.implicit, cfg.model.tracer
+    net = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        packed = K.pack_sdf_weights(net.implicit)
+        weight_bytes = 2 * packed.w_tc.numel() + 4 * (packed.v_tc.numel() + 1)
+        L = icfg.multires
+        x = torch.rand((W64_ROWS, 3), generator=gen, device=dev) * 2 - 1
+        pe = positional_encoding(x, L).contiguous()
+        got, ref = K.sdf_mlp(packed, pe), K.sdf_mlp_reference(packed, pe)
+        xyz = K.sdf_mlp_xyz(packed, L, x)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        xyz_err = (xyz - ref).abs().max().item()
+        log(f"[width 64] sdf_mlp on {W64_ROWS} rows of the tiny leg's net "
+            f"({len(icfg.dims)}x{icfg.dims[0]}): max|kernel - f32 plain| = "
+            f"{err:.3e}, sdf_mlp_xyz {xyz_err:.3e} (tolerance {TOL:g})")
+        if max(err, xyz_err) > TOL or not torch.isfinite(got).all():
+            raise AssertionError("sdf_mlp at width 64 disagrees with its "
+                                 "plain version")
+        flops = K.flops_per_point(icfg) * W64_ROWS
+        entries = [kernel_entry(
+            "sdf_mlp (width 64)", "sdf_mlp.cu",
+            "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205", err,
+            cuda_ms(lambda: K.sdf_mlp(packed, pe)),
+            cuda_ms(lambda: K.sdf_mlp_reference(packed, pe)), flops,
+            4 * (pe.numel() + W64_ROWS) + weight_bytes,
+            cuda_ms(lambda: library_chain(net.implicit, x)))]
+        tile_ms = cuda_ms(lambda: K.sdf_mlp_xyz(packed, L, x[:64]))
+        sc = graft_entry._scene(sizes["n_images"], sizes["n_pix"],
+                                sizes["feat"], sizes["depth_hw"],
+                                sizes["img_hw"])
+        rays = bench_rays(scene_to_torch(sc, dev), tcfg)
+        sec = check_secant(icfg, tcfg, packed, rays, weight_bytes, tile_ms,
+                           max(err, xyz_err))
+    sec["name"] = "secant (width 64)"
+    return entries + [sec]
+
+
+def repro_check(batch, dev):
+    """The repair of the runs' reproducibility: the frozen FeatExt features
+    of REPRO_VIEWS random views computed twice (scene.frozen_features, on
+    cuDNN's deterministic algorithms) are equal, bit for bit; and
+    bench_phaseB from seed 0, REPRO_STEPS steps, twice: every metric of
+    every step and every parameter equal, bit for bit. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.data.synthetic import shaded_features
+    from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
+    rgbs = np.random.default_rng(0).uniform(
+        -1, 1, (REPRO_VIEWS, 2 * REPRO_DEPTH, 2 * REPRO_DEPTH, 3)
+    ).astype(np.float32)
+    feats = [shaded_features(rgbs, REPRO_DEPTH, device=dev)
+             for _ in range(2)]
+    log(f"[repro] frozen features of {REPRO_VIEWS} views at "
+        f"{2 * REPRO_DEPTH}^2, twice: "
+        f"{'equal' if np.array_equal(*feats) else 'DIFFERENT'} "
+        f"(max |d| {np.abs(feats[0] - feats[1]).max():.3e})")
+    if not np.array_equal(*feats):
+        raise AssertionError("the frozen features differ between two calls")
+    cfg = bench_config()
+    runs = []
+    zero_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, seed=0, device=dev)
+        step = make_train_step(cfg, phase_idx=1)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        metrics = [step(state, batch, cfg.schedule.weights(0.3), gen)
+                   for _ in range(REPRO_STEPS)]
+        torch.cuda.synchronize()
+        runs.append(([{k: v.item() for k, v in m.items()} for m in metrics],
+                     [p.detach().clone() for p in state.net.parameters()],
+                     time.perf_counter() - t0))
+    launches = counts()
+    (m_a, p_a, s_a), (m_b, p_b, s_b) = runs
+    same_p = sum(torch.equal(a, b) for a, b in zip(p_a, p_b))
+    log(f"[repro] bench_phaseB {REPRO_STEPS} steps from seed 0, twice "
+        f"({s_a:.1f} / {s_b:.1f} s): metrics "
+        f"{'equal' if m_a == m_b else 'DIFFERENT'} in every step (last "
+        f"loss {m_a[-1]['loss']!r} / {m_b[-1]['loss']!r}); {same_p} of "
+        f"{len(p_a)} parameter tensors equal to the bit; launches {launches}")
+    if m_a != m_b or same_p != len(p_a):
+        raise AssertionError("two runs of the bench step differ")
+    if launches["sdf_mlp"] == 0:
+        raise AssertionError("the deterministic runs never launched sdf_mlp")
+    return launches
+
+
+def bench_phase(batch, dev):
+    """Phase 18: the port's bench CLI with the default and the fused
+    switches; entry() on the card; kernels 1 and 3 at width 64, then
+    dryrun_multichip(2), both legs; the reproducibility checks. Returns
+    the width-64 entries of the kernels line."""
+    import math
+    import torch
+    from mvsdf_tpu_torch import graft_entry
+    from mvsdf_tpu_torch.bench import FUSED_SWITCHES
+    t_phase = time.perf_counter()
+    lines = {name: run_bench_cli(name, sw) for name, sw in (
+        ("default", {}), ("fused", FUSED_SWITCHES))}
+    log(f"[bench] rays/s: default {lines['default']['value']}, fused "
+        f"{lines['fused']['value']}")
+    zero_counts()
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    shapes = [tuple(o.shape) for o in out]
+    log(f"[entry] outputs {shapes}, hit "
+        f"{out[1].float().mean().item():.4f}, launches {counts()}")
+    if shapes != [(1, 1024, 3), (1, 1024), (1, 1024)] or not all(
+            torch.isfinite(o.float()).all() for o in out) or any(
+            counts().values()):
+        raise AssertionError("entry() gave the wrong shapes, a non-finite "
+                             "value or launched a kernel")
+    del out, args
+    entries = check_width64(dev)
+    torch.cuda.empty_cache()
+    legs = graft_entry.dryrun_multichip(2)
+    tiny = legs[0]["launches"][0]
+    for e in entries:
+        e["launches"] = tiny[e["name"].split()[0]]
+    if not all(math.isfinite(v["loss"]) for v in legs):
+        raise AssertionError("the dry run's loss is not finite")
+    repro_check(batch, dev)
+    log(f"[bench] phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2272,6 +2445,9 @@ def main():
         t0 = time.perf_counter()
         suite_phase(tmp)
         log(f"[suite] phase 17 {time.perf_counter() - t0:.1f} s")
+    # 18. the bench, the driver's entry points, reproducibility
+    torch.cuda.empty_cache()
+    entries += bench_phase(batch, dev)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")

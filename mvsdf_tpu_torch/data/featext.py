@@ -122,6 +122,26 @@ def tf32_off():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, no autotuning, inside the block;
+    the caller's settings after it. Left to itself cuDNN may pick a
+    nondeterministic algorithm for the FeatExt's convolutions (the
+    decoder's transposed ones among them), and then every process computes
+    slightly other frozen features and two training runs of the same seed
+    part at their first feature-consistency step. The features are
+    computed once a scene load, so this costs nothing a step."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = saved
+
+
 # ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------

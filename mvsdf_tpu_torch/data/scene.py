@@ -34,8 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from . import formats
-from .featext import init_feat_ext, load_torch_checkpoint, make_feat_ext, \
-    tf32_off
+from .featext import deterministic_cudnn, init_feat_ext, \
+    load_torch_checkpoint, make_feat_ext, tf32_off
 from ..device import resolve_device
 from ..geometry.cameras import decompose_projection
 from ..geometry.projections import scale_camera
@@ -63,13 +63,14 @@ def frozen_features(net, rgbs, size) -> torch.Tensor:
     """Head [2] of the frozen FeatExt ``net`` on images ``rgbs`` (a
     sequence of (3, H, W) float32 arrays in [-1, 1]): resized bilinearly to
     ``size`` (H', W') where they differ, ImageNet-normalised, on the net's
-    device, FEAT_BATCH views at a time, TF32 off. Returns (N, 32, H'/2,
-    W'/2) on that device."""
+    device, FEAT_BATCH views at a time, TF32 off, through cuDNN's
+    deterministic algorithms (the same bits in every run). Returns (N, 32,
+    H'/2, W'/2) on that device."""
     dev = next(net.parameters()).device
     mean = torch.from_numpy(IMAGENET_MEAN).to(dev)[:, None, None]
     std = torch.from_numpy(IMAGENET_STD).to(dev)[:, None, None]
     out = None
-    with torch.no_grad(), tf32_off():
+    with torch.no_grad(), tf32_off(), deterministic_cudnn():
         for i in range(0, len(rgbs), FEAT_BATCH):
             x = torch.from_numpy(np.stack(rgbs[i:i + FEAT_BATCH])).to(dev)
             if x.shape[-2:] != tuple(size):

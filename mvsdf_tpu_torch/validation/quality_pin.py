@@ -38,9 +38,10 @@ REFERENCE_BARS: Dict[str, Tuple[str, float]] = {
 # (b) key -> (pinned, tolerance): the values --print-pin printed for the
 # port's seed-0 600-epoch run on an "NVIDIA H100 80GB HBM3, 700.00 W"
 # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader), with
-# the JAX pin's tolerances. The card's runs are not bit-reproducible (its
-# gradient scatters use atomics): an earlier run of the same code read
-# 0.00878 / 22.46 / 0.65 / 0.338.
+# the JAX pin's tolerances. Those runs were not bit-reproducible: their
+# frozen features came from nondeterministic cuDNN convolutions (since
+# computed on cuDNN's deterministic algorithms, scene.frozen_features), and
+# an earlier run of the same code read 0.00878 / 22.46 / 0.65 / 0.338.
 PIN: Dict[str, Tuple[float, float]] = {
     "chamfer_overall": (0.00845, 0.003),
     "heldout_psnr": (22.42, 1.0),

@@ -712,3 +712,170 @@ def test_validation_capstone_on_the_card(cuda, tmp_path):
     for f in ("surface.obj", "heldout_pred.png", "heldout_gt.png",
               "params.pt"):
         assert (out / f).is_file(), f
+
+
+def _tiny_leg(device):
+    """The dry run's tiny leg on the card: its configuration, seed-0 net,
+    packed weights and one process's batch."""
+    from mvsdf_tpu_torch import graft_entry
+    from mvsdf_tpu_torch.data.synthetic import scene_to_torch
+    from mvsdf_tpu_torch.train.step import init_params
+    cfg, sizes = graft_entry.leg(2, False)
+    net = init_params(cfg, seed=0, device=device)
+    with torch.no_grad():
+        packed = K.pack_sdf_weights(net.implicit)
+    sc = graft_entry._scene(sizes["n_images"], sizes["n_pix"], sizes["feat"],
+                            sizes["depth_hw"], sizes["img_hw"])
+    return cfg, net, packed, scene_to_torch(sc, device)
+
+
+@pytest.mark.cuda
+def test_sdf_mlp_and_secant_at_the_dry_runs_width_64(cuda):
+    """The dry run's tiny leg (SDF 3 x 64, skip at 2, multires 6, 4 secant
+    steps) through sdf_mlp and secant against their plain versions: the
+    SDF within 1e-4; the secant on the first sign crossings of the tiny
+    scene's rays (20 samples) within 1e-4 + 1e-4 |z| + 2 e / |slope|, e
+    the SDF kernel's distance from f32 (chip_smoke.py's secant gate)."""
+    from mvsdf_tpu_torch.geometry.cameras import get_camera_params
+    from mvsdf_tpu_torch.tracing.sphere_trace import sphere_intersection
+    cfg, net, packed, batch = _tiny_leg(cuda)
+    icfg, tcfg = cfg.model.implicit, cfg.model.tracer
+    L = icfg.multires
+    with torch.no_grad():
+        x = torch.rand((1280, 3), device=cuda) * 2 - 1
+        got = K.sdf_mlp(packed, positional_encoding(x, L))
+        e = (got - K.sdf_mlp_reference(packed, positional_encoding(x, L))
+             ).abs().max().item()
+        assert e <= 1e-4 and torch.isfinite(got).all()
+        dirs, loc = get_camera_params(batch["uv"], batch["pose"],
+                                      batch["intrinsics"])
+        org = loc[:, None].expand(dirs.shape).reshape(-1, 3)
+        dirs = dirs.reshape(-1, 3)
+        mi, t0, t1 = sphere_intersection(org, dirs,
+                                         tcfg.object_bounding_sphere)
+        o, d = org[mi], dirs[mi]
+        n = tcfg.n_steps
+        ts = t0[mi][:, None] + torch.linspace(0, 1, n, device=cuda) * (
+            t1 - t0)[mi][:, None]
+        v = K.sdf_mlp_xyz_reference(packed, L, (
+            o[:, None] + ts[..., None] * d[:, None]).reshape(-1, 3)
+        ).reshape(-1, n)
+        ind = torch.argmin(torch.sign(v) * torch.arange(
+            n, 0, -1, dtype=v.dtype, device=cuda), -1)
+        r = torch.nonzero((v.gather(1, ind[:, None])[:, 0] < 0) & (ind > 0)
+                          )[:, 0]
+        assert r.numel() > 10
+        i = ind[r]
+        args = (o[r].contiguous(), d[r].contiguous(), ts[r, i - 1],
+                ts[r, i], v[r, i - 1], v[r, i])
+        before = S.secant.launches
+        z = S.secant(packed, L, tcfg.n_secant_steps, *args)
+        assert S.secant.launches == before + 1
+        ref = S.secant_reference(packed, L, tcfg.n_secant_steps, *args)
+        sdf = lambda t: K.sdf_mlp_xyz_reference(
+            packed, L, args[0] + t[:, None] * args[1])
+        slope = (sdf(ref + 1e-3) - sdf(ref - 1e-3)).abs() / 2e-3
+        assert ((z - ref).abs() <= 1e-4 + 1e-4 * ref.abs() + 2 * e / slope
+                ).all()
+
+
+@pytest.mark.cuda
+def test_entry_on_the_card(cuda):
+    """entry(): finite outputs of (1, 1024, 3), (1, 1024), (1, 1024) on the
+    card, and some rays hit."""
+    from mvsdf_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    assert args[1].device.type == "cuda"
+    rgb, mask, dists = fn(*args)
+    assert rgb.shape == (1, 1024, 3) and mask.shape == dists.shape == \
+        (1, 1024)
+    assert torch.isfinite(rgb).all() and torch.isfinite(dists).all()
+    assert 0 < mask.float().mean().item() < 1
+
+
+BENCH_RUN = r"""
+import dataclasses, json, sys
+import torch
+from mvsdf_tpu_torch import bench
+cfg = bench.bench_config(bench.FUSED_SWITCHES)
+m = cfg.model
+cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+    cfg.train, batch_size=2, num_pixels=512), model=dataclasses.replace(
+    m, implicit=dataclasses.replace(m.implicit, dims=(64,) * 3,
+                                    skip_in=(2,), feature_vector_size=16),
+    render=dataclasses.replace(m.render, dims=(64,), feature_vector_size=16)))
+dev = torch.device("cuda")
+batch = bench.bench_batch(cfg, dev, img_hw=48, depth_hw=24, feat_ch=8)
+res = bench.run_bench(cfg, batch, dev, warmup=2, windows=3, window_iters=2)
+json.dump(res, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.mark.cuda
+def test_bench_json_line_on_the_card(cuda, tmp_path):
+    """run_bench at a narrow width in the fused configuration, in a
+    process of its own: one stdout line of bench.py's four keys, a finite
+    positive rate, the march kernel in every step, a peak memory."""
+    import json
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "res.json"
+    res = subprocess.run([sys.executable, "-c", BENCH_RUN, str(out)],
+                         cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    (line,) = res.stdout.splitlines()
+    line = json.loads(line)
+    assert list(line) == ["metric", "value", "unit", "vs_baseline"]
+    assert np.isfinite(line["value"]) and line["value"] > 0
+    full = json.load(open(out))
+    assert full["launches_per_step"]["sphere_march"] == 1
+    assert full["peak_gib"] > 0
+
+
+REPRO_RUN = r"""
+import sys
+import numpy as np, torch
+from mvsdf_tpu_torch import bench
+from mvsdf_tpu_torch.data.synthetic import shaded_features
+from mvsdf_tpu_torch.train.step import init_train_state, make_train_step
+dev = torch.device("cuda")
+rgbs = np.random.default_rng(0).uniform(-1, 1, (12, 96, 96, 3)).astype(
+    np.float32)
+out = {"features": shaded_features(rgbs, 48, device=dev)}
+cfg = bench.bench_config({})
+batch = bench.bench_batch(cfg, dev)
+state = init_train_state(cfg, seed=0, device=dev)
+step = make_train_step(cfg, phase_idx=1)
+gen = torch.Generator(device=dev).manual_seed(0)
+for k in range(5):
+    for n, v in step(state, batch, cfg.schedule.weights(0.3), gen).items():
+        out[f"m{k}:{n}"] = v.cpu().numpy()
+for n, p in state.net.named_parameters():
+    out[n] = p.detach().cpu().numpy()
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.mark.cuda
+def test_two_runs_on_the_card_are_bit_equal(cuda, tmp_path):
+    """Each in a process of its own, twice: the frozen features of 12
+    random 96x96 views (the FeatExt on cuDNN's deterministic algorithms),
+    and the bench step (full width, B=8 x P=4096, through sdf_mlp) 5 steps
+    from seed 0: equal features, metrics and parameters, bit for bit."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = []
+    for r in range(2):
+        out = tmp_path / f"run{r}.npz"
+        res = subprocess.run([sys.executable, "-c", REPRO_RUN, str(out)],
+                             cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        runs.append(dict(np.load(out)))
+    a, b = runs
+    assert a.keys() == b.keys() and np.isfinite(a["m4:loss"])
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], k)

@@ -101,6 +101,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
         convert_main(["--data_dir", "vis", "--out_dir", "scene"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_images("vis", "scene")
+    from mvsdf_tpu_torch import bench, graft_entry
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.main([])
 
 
 def test_the_eval_modules_are_scanned_and_build_from_the_port():
@@ -211,3 +220,32 @@ def test_the_validation_modules_are_scanned_and_need_a_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_scene_shaded(n=2, img_hw=8, depth_hw=4, n_pix=8)
     assert not os.path.exists(tmp_path / "v")
+
+
+def test_the_bench_and_entry_modules_are_scanned_and_import_no_driver_file():
+    """The scans above cover the bench and the driver entry points; neither they nor any other file of the port or
+    chip_smoke.py imports the JAX package's ``bench`` or
+    ``__graft_entry__``, or the tests; importing them alone loads none of
+    these, no JAX and no image library."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    mods = ("bench.py", "graft_entry.py")
+    for mod in mods:
+        assert os.path.join("mvsdf_tpu_torch", mod) in files, mod
+    for path in _port_files():
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("bench", "__graft_entry__",
+                                             "tests"), (path, mod)
+    names = ["mvsdf_tpu_torch." + m[:-3] for m in mods]
+    code = ("import sys, importlib\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from mvsdf_tpu_torch.bench import (bench_config, fused_config, "
+            "run_bench, main)\n"
+            "from mvsdf_tpu_torch.graft_entry import entry, dryrun_multichip\n"
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{('jax', 'mvsdf_tpu', 'tests', 'bench', '__graft_entry__') + IMAGE_LIBRARIES!r}])\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
