@@ -29,14 +29,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   the trace's host-driven loops through sdf_mlp_xyz (the
                   same arithmetic on the same points); the march also by a
                   shuffled copy of its rays (equal bits) and its rows
-                  evaluated / used beside the scheduler model's
+                  evaluated / used beside the scheduler model's; the count
+                  entries of kernels 1-3 (sdf_mlp_count, sdf_mlp_xyz_count,
+                  secant_count) at count 0, a quarter and all of their
+                  capacity: the first count rows equal to the plain entry's
+                  kernel bit for bit, the rest 0, all within the plain
+                  version's tolerance; their times at those counts
   3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
                   images x P=4096 rays, full-width model from seed 0, on the
-                  synthetic bench scene: the trace through sdf_mlp
+                  synthetic bench scene: the trace through sdf_mlp; then the
+                  same step as the trainer's fused dispatch runs it, from
+                  seed 0: captured into a CUDA graph (seconds, graph pool),
+                  one replay against the eager capturable step (equal
+                  bits), 5 replays of a plan uploaded in one copy under
+                  set_sync_debug_mode("error") (no sync) and their
+                  ms/step; sdf_mlp_count in every replay
   4. eval         eval-mode render of one view's 4096 rays; a small render
                   through the kernel against one through the plain field
-  5. train_fused  phases 3 in bench_phaseB_fused: the fused march, secant
-                  and in-kernel-PE SDF-MLP kernels, and no sdf_mlp
+  5. train_fused  phase 3 in bench_phaseB_fused: the fused march, secant
+                  and in-kernel-PE SDF-MLP kernels, and no sdf_mlp; its
+                  graph: sphere_march, sdf_mlp_xyz_count and secant_count
+                  in every replay
   6. eval_fused   phase 4 in bench_phaseB_fused; then the march's rows
                   evaluated / used once more, on the field those training
                   steps left
@@ -45,11 +58,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   then trains it through the training CLI in this process
                   (--pallas, random FeatExt weights, full-width model, B=8
                   x P=4096, epochs 0..6: phases A, B, C; a checkpoint and a
-                  mesh snapshot every epoch, a full render at epoch 4) and
-                  gates what it wrote; the host PNG unfilter against its
-                  numpy version; then resumes from epoch 3: the restored
-                  state must equal the saved one exactly, and epochs 4-6
-                  must repeat the first run's losses within RESUME_RTOL
+                  mesh snapshot every epoch, a full render at epoch 4) on
+                  its fused default (each phase's step captured once and
+                  replayed, sdf_mlp_count in every chunk) and gates what it
+                  wrote; the host PNG unfilter against its numpy version;
+                  phase C's graph: one replay against the eager step
+                  (equal bits), an epoch's steps dispatched under
+                  set_sync_debug_mode("error"); then resumes from epoch 3
+                  with --no_fused (the per-epoch path): the restored state
+                  must equal the saved one exactly, epochs 4-6 must repeat
+                  the first run's losses within RESUME_RTOL and its
+                  epoch-6 parameters within LOOP_RTOL / LOOP_ATOL; ms/step
+                  per phase fused and --no_fused, capture s, graph pool
   8. eval         evaluates phase 7's epoch-6 checkpoint through the eval
                   CLI in this process (--pallas --resolution 512
                   --eval_rendering) on a second scene directory at the same
@@ -146,10 +166,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   their plain versions, then dryrun_multichip(2), both
                   legs (two gloo ranks and one process on this card, the
                   JAX dry run's bounds); the frozen features computed
-                  twice and bench_phaseB run twice from seed 0 for 5
-                  steps: equal bits
+                  twice, bench_phaseB run twice from seed 0 for 5 steps,
+                  and the fused training CLI run twice (17 views, epochs
+                  0..2): equal bits
 Every kernel count is set to 0 just before each of phases 3-16 and 18's
-entry and reproducibility runs, and read just after it (phase 17's
+entry and reproducibility runs (and phases 3 and 5's graph runs), and
+read just after it; a CUDA graph's launches are counted at its capture
+and added once per replay (tracing/kernels/counts.py) (phase 17's
 kernels, and phase 18's bench and dry run, run in processes of their own:
 the bench prints its launches a step, and the dry run's width-64 tiny leg
 supplies the launches of the kernels line's width-64 entries). The
@@ -197,6 +220,10 @@ MARCH_TOL = 1e-4               # |dt| where they agree
 # arithmetic on the same points: every mask equal, and
 HOST_TOL = 1e-6                # |dt|; |dz| <= HOST_TOL (1 + |z|)
 WARMUP, TIMED = 3, 5
+# the count entries' checks and times: count 0, this share of the
+# capacity, all of it (the tiers the JAX package sizes its compacted
+# fallback blocks at run from 1/16 to 3/8 of the rays)
+COUNT_SHARE = 0.25
 PEAK_BF16 = 989e12             # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 # the cli phase: a DTU scan's sizes (image_hd is 2x Vis-MVSNet's depth)
@@ -205,6 +232,10 @@ CLI_EPOCHS = 6
 CLI_ARGS = ("--pallas", "--allow_random_features", "--nepoch",
             str(CLI_EPOCHS), "--batch_size", str(B), "--num_pixels", str(P))
 RESUME_FROM = 3
+# the fused run's epoch-6 parameters against the --no_fused resume's: the
+# JAX package's bound on its fused and per-epoch paths
+# (tests/unit/test_fused_dispatch.py)
+LOOP_RTOL, LOOP_ATOL = 2e-5, 2e-6
 # the eval phase: views rendered of CLI_VIEWS, the CLI's grid, the grid of
 # the kernel / plain and native / numpy checks, the scene's sphere
 EVAL_VIEWS = 8
@@ -293,6 +324,7 @@ BENCH_TIMEOUT_S = 600
 W64_ROWS = 1280
 REPRO_STEPS = 5
 REPRO_VIEWS, REPRO_DEPTH = 12, 48
+REPRO_CLI_VIEWS = 17           # two steps of B=8 an epoch
 
 
 def log(msg):
@@ -605,26 +637,212 @@ def check_secant(icfg, tcfg, packed, rays, weight_bytes, tile_ms, sdf_err):
         f"{k * tile_ms:.3f} ms, the floor of any launch")
     flops = K.flops_per_point(icfg) * n * k
     nbytes = n * (36 + 4) + weight_bytes
-    return kernel_entry("secant", "secant.cu",
-                        "mvsdf_tpu/tracing/pallas/secant_kernel.py:137", err,
-                        ms, plain_ms, flops, nbytes, None)
+    entry = kernel_entry("secant", "secant.cu",
+                         "mvsdf_tpu/tracing/pallas/secant_kernel.py:137", err,
+                         ms, plain_ms, flops, nbytes, None)
+    return entry, args, gate
+
+
+def check_count_entries(net, tcfg, packed, x, pe, sec_args, sec_gate,
+                        weight_bytes):
+    """The count entries of kernels 1-3 at the checks' capacities (N_KERNEL
+    rows for the SDF-MLP, the bracketed bench rays for the secant), each
+    at count 0, COUNT_SHARE of the capacity and all of it: the first count
+    rows equal the plain entry's kernel on them, bit for bit (the same
+    arithmetic), the rest are 0, and the whole is within the plain
+    version's tolerance of the count entry's plain version (TOL; the
+    secant's gate of check_secant). Returns their kernels-line entries,
+    timed at COUNT_SHARE of the capacity, the count the trace's compacted
+    blocks typically hold."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
+    L = net.cfg.multires
+    k = tcfg.n_secant_steps
+    n_sec = sec_args[0].shape[0]
+    dev = x.device
+    cases = (
+        ("sdf_mlp_count", N_KERNEL, "sdf_mlp.cu",
+         "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205",
+         lambda c: K.sdf_mlp_count(packed, pe, c),
+         lambda r: K.sdf_mlp(packed, pe[:r]),
+         lambda c: K.sdf_mlp_count_reference(packed, pe, c),
+         lambda d, ref: d <= TOL, pe.shape[1]),
+        ("sdf_mlp_xyz_count", N_KERNEL, "sdf_mlp.cu",
+         "mvsdf_tpu/tracing/pallas/sdf_kernel.py:205 (in_kernel_pe, "
+         "_make_pe_kernel :137)",
+         lambda c: K.sdf_mlp_xyz_count(packed, L, x, c),
+         lambda r: K.sdf_mlp_xyz(packed, L, x[:r]),
+         lambda c: K.sdf_mlp_xyz_count_reference(packed, L, x, c),
+         lambda d, ref: d <= TOL, 3),
+        ("secant_count", n_sec, "secant.cu",
+         "mvsdf_tpu/tracing/pallas/secant_kernel.py:137",
+         lambda c: S.secant_count(packed, L, k, *sec_args, c),
+         lambda r: S.secant(packed, L, k, *(a[:r] for a in sec_args)),
+         lambda c: S.secant_count_reference(packed, L, k, *sec_args, c),
+         lambda d, ref: d <= sec_gate, 9))
+    out = []
+    for name, cap, src, replaces, fn, kernel, plain, ok, width in cases:
+        errs = []
+        for rows in (0, int(cap * COUNT_SHARE), cap):
+            c = torch.tensor(rows, dtype=torch.int32, device=dev)
+            got, ref = fn(c), plain(c)
+            first = kernel(rows) if rows else got[:0]
+            torch.cuda.synchronize()
+            d = (got - ref).abs()
+            errs.append(d.max().item())
+            if not (torch.equal(got[:rows], first) and
+                    not got[rows:].any() and ok(d, ref).all()):
+                raise AssertionError(f"{name} at count {rows} of {cap}: "
+                                     f"max|count entry - plain| {errs[-1]}")
+        rows = int(cap * COUNT_SHARE)
+        ms = {}
+        for n in (0, rows, cap):
+            c = torch.tensor(n, dtype=torch.int32, device=dev)
+            ms[n] = cuda_ms(lambda: fn(c))
+        log(f"[kernel] {name}, capacity {cap}: the first count rows equal "
+            f"the plain entry's kernel bit for bit and the rest are 0 at "
+            f"counts 0, {rows} and {cap}; max|count entry - plain version| "
+            f"{[f'{e:.3e}' for e in errs]}; "
+            f"{ms[0]:.4f} / {ms[rows]:.4f} / {ms[cap]:.4f} ms at those "
+            f"counts (the output's zeroing included), the plain entry's "
+            f"kernel on the first {rows}: "
+            f"{cuda_ms(lambda: kernel(rows)):.4f} ms")
+        c = torch.tensor(rows, dtype=torch.int32, device=dev)
+        per = K.flops_per_point(net.cfg) * (k if name == "secant_count"
+                                            else 1)
+        nbytes = 4 * (rows * width + cap) + weight_bytes
+        library = None if name == "secant_count" else cuda_ms(
+            lambda: library_chain(net, x[:rows]))
+        out.append(kernel_entry(name, src, replaces, max(errs), ms[rows],
+                                cuda_ms(lambda: plain(c)), per * rows,
+                                nbytes, library))
+    return out
+
+
+class BatchCache:
+    """Serves the bench batch to a CapturableStep whatever its row's
+    image and pixel ids say: every bench step takes the same batch, as the
+    eager bench steps of phases 3 and 5 do."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.device = batch["uv"].device
+
+    def gather(self, indices, sel):
+        return self.batch
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """Any synchronizing CUDA operation inside raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def replay_against_eager(step):
+    """The captured step's replay against its eager run from the same
+    state, the same row and the same generator state: every tensor it
+    writes, bit for bit. Leaves the replay's result in place. Returns the
+    names of the tensors that differ with their max |difference|."""
+    import torch
+    written = step.written()
+    before = [t.clone() for t in written]
+    gen = step.generator.get_state()
+    step.eager()
+    torch.cuda.synchronize()
+    eager = [t.clone() for t in written]
+    with torch.no_grad():
+        for t, b in zip(written, before):
+            t.copy_(b)
+    step.generator.set_state(gen)
+    step()
+    torch.cuda.synchronize()
+    return [(i, (a.double() - b.double()).abs().max().item())
+            for i, (a, b) in enumerate(zip(written, eager))
+            if not torch.equal(a, b)]
+
+
+def graph_steps(tag, cfg, batch, gen, dev, eager_ms, every):
+    """The configuration's phase-B step as the trainer's fused path runs
+    it (a CapturableStep captured into a CUDA graph) on the bench batch,
+    from seed 0: the capture (its seconds and graph pool); one replay
+    against the eager capturable step (equal bits); TIMED replays of a
+    plan uploaded in one copy under set_sync_debug_mode("error") (no
+    synchronizing operation), their ms/step beside the eager path's
+    ``eager_ms``. Every kernel in ``every`` must launch in a replay.
+    Returns the launches of the run (counted from 0 at its start)."""
+    import numpy as np
+    import torch
+    from mvsdf_tpu_torch.train.step import (CapturableStep, adam_scalars,
+                                            init_train_state)
+    state = init_train_state(cfg, seed=0, device=dev)
+    step = CapturableStep(cfg, 1, cfg.schedule.weights(0.3), state,
+                          BatchCache(batch), gen)
+    opt = state.optimizer
+
+    def row(t):
+        for _, _, st in step.adam:
+            st += 1
+        return step.plan_row(np.arange(B), np.arange(P),
+                             adam_scalars(opt, t))
+
+    zero_counts()
+    step.row.copy_(torch.from_numpy(row(1)))
+    step.capture()
+    bad = []
+    step.row.copy_(torch.from_numpy(row(2)))
+    bad = replay_against_eager(step)
+    plan = torch.from_numpy(np.stack([row(t) for t in range(3, 3 + TIMED)])
+                            ).pin_memory()
+    out = torch.empty((TIMED, step.metrics.numel()), device=dev)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with sync_debug_error():
+        plan_d = plan.to(dev, non_blocking=True)
+        e0.record()
+        for k in range(TIMED):
+            step.row.copy_(plan_d[k])
+            step()
+            out[k].copy_(step.metrics)
+        e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / TIMED
+    launches = counts()
+    log(f"[{tag} graph] captured in {step.capture_s:.2f} s, graph pool "
+        f"{step.graph_bytes / 2 ** 20:.1f} MiB; one replay against the "
+        f"eager capturable step: "
+        f"{'equal bits' if not bad else f'{len(bad)} tensors differ {bad[:5]}'}"
+        f"; {TIMED} replays under set_sync_debug_mode('error'): no sync, "
+        f"{ms:.1f} ms/step against the per-epoch step's {eager_ms:.1f}; "
+        f"launches a replay {step.launches}; last metrics "
+        f"{[round(v, 5) for v in out[-1].tolist()]}")
+    if bad:
+        raise AssertionError(f"{tag}: a replay differs from the eager step")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{tag}: non-finite metrics under replay")
+    for k in every:
+        if not step.launches.get(k):
+            raise AssertionError(f"{tag}: a replay never launched {k}")
+    return launches
 
 
 def counters():
-    from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
-    from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
-    from mvsdf_tpu_torch.tracing.kernels import secant_kernel as S
-    return {"sdf_mlp": K.sdf_mlp, "sdf_mlp_xyz": K.sdf_mlp_xyz,
-            "secant": S.secant, "sphere_march": M.sphere_march}
+    from mvsdf_tpu_torch.tracing.kernels import counts as C
+    return C.wrappers()
 
 
 def counts():
-    return {k: f.launches for k, f in counters().items()}
+    from mvsdf_tpu_torch.tracing.kernels import counts as C
+    return C.snapshot()
 
 
 def zero_counts():
-    for f in counters().values():
-        f.launches = 0
+    from mvsdf_tpu_torch.tracing.kernels import counts as C
+    C.zero()
 
 
 def train(tag, cfg, batch, gen, dev, every_step, some_step, never):
@@ -757,18 +975,23 @@ def check_png_unfilter(data_dir):
 
 
 def train_cli(argv, launches):
-    """Runs the training CLI in this process, counting each epoch's kernel
-    launches into ``launches``; returns the trainer."""
+    """Runs the training CLI in this process, counting the kernel launches
+    of each chunk (the fused dispatch) or epoch (--no_fused) into
+    ``launches``; returns the trainer."""
     from mvsdf_tpu_torch.train import cli, loop
-    train_epoch = loop.Trainer.train_epoch
+    runs = {name: getattr(loop.Trainer, name)
+            for name in ("train_epoch", "_train_chunk")}
 
-    def counted(self, epoch):
-        before = counts()
-        out = train_epoch(self, epoch)
-        launches.append({k: v - before[k] for k, v in counts().items()})
-        return out
+    def counted(run):
+        def wrapped(self, *epochs):
+            before = counts()
+            out = run(self, *epochs)
+            launches.append({k: v - before[k] for k, v in counts().items()})
+            return out
+        return wrapped
 
-    loop.Trainer.train_epoch = counted
+    for name, run in runs.items():
+        setattr(loop.Trainer, name, counted(run))
     try:
         if "--is_continue" not in argv:
             return cli.main(argv)
@@ -779,7 +1002,21 @@ def train_cli(argv, launches):
         trainer.run(resume=False)
         return trainer
     finally:
-        loop.Trainer.train_epoch = train_epoch
+        for name, run in runs.items():
+            setattr(loop.Trainer, name, run)
+
+
+def check_launches(launches, fused=True):
+    """A training CLI's kernel launches, by chunk or by epoch: the SDF-MLP's
+    count entry in every chunk of a fused run (the captured step's trace),
+    sdf_mlp in every epoch of a --no_fused run, and no other kernel.
+    Returns (that kernel, its launches by chunk or epoch)."""
+    want = "sdf_mlp_count" if fused else "sdf_mlp"
+    if not launches or min(e[want] for e in launches) == 0 or any(
+            e[k] for e in launches for k in e if k != want):
+        raise AssertionError(f"kernel launches by "
+                             f"{'chunk' if fused else 'epoch'} {launches}")
+    return want, [e[want] for e in launches]
 
 
 def check_restored(trainer):
@@ -816,6 +1053,33 @@ def check_restored(trainer):
         raise AssertionError(f"restored state differs from the saved: {bad}")
 
 
+def check_cli_graph(trainer):
+    """After the CLI's fused run, its phase-C graph: one more epoch's plan
+    drawn; its first step replayed against the eager capturable step from
+    the same state (equal bits), its other steps dispatched as the chunk
+    path does under set_sync_debug_mode("error") (no synchronizing
+    operation). Leaves the trainer a step ahead of its checkpoint."""
+    import torch
+    step = trainer.fused_steps[2]
+    e = trainer.cfg.train.nepochs
+    plan, epochs, _ = trainer._plan_chunk(e, e, step)
+    step.row.copy_(torch.from_numpy(plan[0]).to(trainer.device))
+    bad = replay_against_eager(step)
+    with sync_debug_error():
+        chunk = trainer._dispatch(step, plan[1:], epochs[1:])
+    chunk["done"].synchronize()
+    m = chunk["out"]
+    log(f"[cli graph] phase C's captured step: one replay against the "
+        f"eager capturable step "
+        f"{'equal bits' if not bad else f'differs: {bad[:5]}'}; "
+        f"{len(epochs) - 1} steps dispatched under set_sync_debug_mode("
+        f"'error'): no sync, metrics finite {bool(torch.isfinite(m).all())}"
+        f"; launches a replay {step.launches}")
+    if bad or not torch.isfinite(m).all():
+        raise AssertionError("the CLI's graph differs from its eager step "
+                             "or gave non-finite metrics")
+
+
 def metric_rows(trainer):
     with open(os.path.join(trainer.exp_dir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -839,10 +1103,7 @@ def check_cli_run(trainer, rows, launches, printed):
     want = [rows[0]["lr"] * 0.1 ** sum(e >= m for m in ms) for e in epochs]
     if not np.allclose([r["lr"] for r in rows], want, rtol=1e-6, atol=0):
         raise AssertionError(f"lr by epoch {[r['lr'] for r in rows]}")
-    if min(e["sdf_mlp"] for e in launches) == 0 or any(
-            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
-                                             "sphere_march")):
-        raise AssertionError(f"kernel launches by epoch {launches}")
+    kernel, by_chunk = check_launches(launches)
     ck = trainer.ckpt_dir
     steps = sorted(int(d[5:]) for d in os.listdir(ck)
                    if d.startswith("step_"))
@@ -868,8 +1129,8 @@ def check_cli_run(trainer, rows, launches, printed):
         raise AssertionError("a mesh snapshot or render failed")
     lrs = [f"{r['lr']:.2e}" for r in rows]
     log(f"[cli] {len(rows)} metric rows, losses finite, phases {phases}, lr "
-        f"{lrs}; sdf_mlp launches by epoch "
-        f"{[e['sdf_mlp'] for e in launches]}, the other kernels none; "
+        f"{lrs}; {kernel} launches by chunk {by_chunk}, the other kernels "
+        f"none; "
         f"checkpoints {steps}, latest {latest}; mesh faces {faces}; "
         f"rendering_4.png {grid.shape} (view {idx}), rendered half std "
         f"{grid[:, :W].std():.2f}")
@@ -931,15 +1192,24 @@ def cli_phase(tmp):
     log(f"[cli] checkpoint save ms {[round(x, 1) for x in t['save_ms']]}"
         f"; mesh snapshot ms {[round(x, 1) for x in t['mesh_ms']]}; full "
         f"render of {CLI_IMG[0] * CLI_IMG[1]} rays "
-        f"{[round(x, 2) for x in t['render_s']]} s; sdf_mlp launches "
-        f"{total['sdf_mlp']}")
+        f"{[round(x, 2) for x in t['render_s']]} s; launches {total}")
+    log(f"[cli] the fused dispatch: capture s by phase "
+        f"{ {k: round(v, 2) for k, v in t['capture_s'].items()} }, graph "
+        f"pool MiB by phase "
+        f"{ {k: round(v / 2 ** 20, 1) for k, v in t['graph_bytes'].items()} }"
+        f"; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB")
+    fused_params = [p.detach().clone() for p in trainer.state.net.parameters()]
+    check_cli_graph(trainer)
+    del trainer
 
-    # resume from epoch 3 into the same experiment
+    # resume from epoch 3 into the same experiment, on the per-epoch path
     resumed = []
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         trainer2 = train_cli(argv + ["--is_continue", "--checkpoint",
-                                     str(RESUME_FROM)], resumed)
+                                     str(RESUME_FROM), "--no_fused"],
+                             resumed)
     rows2 = metric_rows(trainer2)[len(rows):]
     if [r["step"] for r in rows2] != list(range(RESUME_FROM + 1,
                                                 CLI_EPOCHS + 1)):
@@ -956,9 +1226,23 @@ def cli_phase(tmp):
         f"{[round(r['loss'], 6) for r in rows[RESUME_FROM + 1:]]}: worst "
         f"relative difference of a loss term {worst:.3e} (tolerance "
         f"{RESUME_RTOL:g}); sdf_mlp launches by epoch "
-        f"{[e['sdf_mlp'] for e in resumed]}")
+        f"{check_launches(resumed, fused=False)[1]}")
     if worst > RESUME_RTOL or "plot failed" in "".join(tee.text):
         raise AssertionError("the resumed run does not repeat the first")
+    d = [(a - b).abs() - LOOP_ATOL - LOOP_RTOL * b.abs() for a, b in zip(
+        fused_params, trainer2.state.net.parameters())]
+    worst_p = max(x.max().item() for x in d)
+    log(f"[cli] epoch-6 parameters, fused run against the --no_fused "
+        f"resume: max(|d| - atol - rtol |p|) = {worst_p:.3e} (<= 0 at rtol "
+        f"{LOOP_RTOL:g}, atol {LOOP_ATOL:g}), max|d| "
+        f"{max((a - b).abs().max().item() for a, b in zip(fused_params, trainer2.state.net.parameters())):.3e}")
+    fused_t = phase_times(rows, B * P)
+    for name, (ms, _, _) in phase_times(rows2, B * P).items():
+        log(f"[cli] phase {name}: fused {fused_t[name][0]:.1f} ms/step, "
+            f"--no_fused {ms:.1f} ms/step (epochs "
+            f"{[r['step'] for r in rows2]})")
+    if worst_p > 0:
+        raise AssertionError("the fused run and the --no_fused resume part")
     log(f"[cli] peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return {"data_dir": data_dir, "exps": os.path.join(tmp, "exps"),
@@ -1161,23 +1445,25 @@ def cams_phase(tmp, data_dir, cli_times):
     import torch
     from mvsdf_tpu_torch.data.synthetic import write_pose_init
     from mvsdf_tpu_torch.train import checkpoints as ckpt
+    from mvsdf_tpu_torch.train import loop
     from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
-    from mvsdf_tpu_torch.train.device_data import DeviceSceneCache
     from mvsdf_tpu_torch.train.step import init_train_state
     write_pose_init(data_dir, *CAMS_NOISE)
     exps = os.path.join(tmp, "exps_cams")
     argv = ["--data_dir", data_dir, "--exps_folder", exps, "--expname",
             "cams", *CAMS_ARGS]
-    drawn = []                  # each step's image indices, on the device
-    gather = DeviceSceneCache.gather
+    drawn = []                  # each step's image indices
+    plan_chunk = loop.Trainer._plan_chunk
 
-    def recorded(self, indices, sel):
-        drawn.append(indices)
-        return gather(self, indices, sel)
+    def recorded(self, e0, e1, step):
+        # the fused path's plan: a row a step, the B image indices first
+        plan, epochs, n_sel = plan_chunk(self, e0, e1, step)
+        drawn.extend(torch.from_numpy(plan[:, :step.B]).long())
+        return plan, epochs, n_sel
 
     tee = Tee(sys.stdout)
     launches = []
-    DeviceSceneCache.gather = recorded
+    loop.Trainer._plan_chunk = recorded
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
@@ -1185,7 +1471,7 @@ def cams_phase(tmp, data_dir, cli_times):
         with contextlib.redirect_stdout(tee):
             trainer = train_cli(argv, launches)
     finally:
-        DeviceSceneCache.gather = gather
+        loop.Trainer._plan_chunk = plan_chunk
     wall = time.perf_counter() - t0
     rows = metric_rows(trainer)
     epochs = list(range(CAMS_EPOCHS + 1))
@@ -1195,10 +1481,7 @@ def cams_phase(tmp, data_dir, cli_times):
             sched.phase_index(e / CAMS_EPOCHS) for e in epochs] or not all(
                 np.isfinite(r[k]) for r in rows for k in LOSSES):
         raise AssertionError(f"camera run's metric rows {rows}")
-    if min(e["sdf_mlp"] for e in launches) == 0 or any(
-            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
-                                             "sphere_march")):
-        raise AssertionError(f"kernel launches by epoch {launches}")
+    kernel, by_chunk = check_launches(launches)
     if "plot failed" in "".join(tee.text):
         raise AssertionError("a mesh snapshot failed")
     st = trainer.state
@@ -1213,8 +1496,8 @@ def cams_phase(tmp, data_dir, cli_times):
         f"poses moved by max|d| {moved.max().item():.3e} (mean "
         f"{moved.mean().item():.3e}), {int((moved > 0).sum())} rows moved, "
         f"{int(m_rows.sum())} rows with nonzero moments, SparseAdam step "
-        f"{int(st.cam_opt.step)}; sdf_mlp launches by epoch "
-        f"{[e['sdf_mlp'] for e in launches]}, the other kernels none")
+        f"{int(st.cam_opt.step)}; {kernel} launches by chunk {by_chunk}, "
+        f"the other kernels none")
     if not torch.isfinite(pv).all() or moved.max() == 0 or \
             (m_rows & ~seen).any() or (moved[~seen] > 0).any():
         raise AssertionError("the poses did not move, are not finite, or "
@@ -1717,15 +2000,12 @@ def convert_phase(tmp, data_dir):
     if [r["step"] for r in rows] != list(range(CONVERT_EPOCHS + 1)) or \
             not all(np.isfinite(r[k]) for r in rows for k in LOSSES):
         raise AssertionError(f"training on the converted scene: {rows}")
-    if min(e["sdf_mlp"] for e in launches) == 0 or any(
-            e[k] for e in launches for k in ("sdf_mlp_xyz", "secant",
-                                             "sphere_march")):
-        raise AssertionError(f"kernel launches by epoch {launches}")
+    kernel, by_chunk = check_launches(launches)
     sc = trainer.scene
     log(f"[convert] training CLI on the converted scene: {wall:.1f} s, "
         f"scene load {sc.timings['load_s']:.2f} s; losses "
-        f"{[round(r['loss'], 6) for r in rows]}, finite; sdf_mlp launches "
-        f"by epoch {[e['sdf_mlp'] for e in launches]}, the other kernels "
+        f"{[round(r['loss'], 6) for r in rows]}, finite; {kernel} launches "
+        f"by chunk {by_chunk}, the other kernels "
         f"none; ms/step by phase "
         f"{ {k: round(v[0], 1) for k, v in phase_times(rows, B * P).items()} }"
         f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -2246,8 +2526,8 @@ def check_width64(dev):
                                 sizes["feat"], sizes["depth_hw"],
                                 sizes["img_hw"])
         rays = bench_rays(scene_to_torch(sc, dev), tcfg)
-        sec = check_secant(icfg, tcfg, packed, rays, weight_bytes, tile_ms,
-                           max(err, xyz_err))
+        sec, _, _ = check_secant(icfg, tcfg, packed, rays, weight_bytes,
+                                 tile_ms, max(err, xyz_err))
     sec["name"] = "secant (width 64)"
     return entries + [sec]
 
@@ -2303,6 +2583,44 @@ def repro_check(batch, dev):
     return launches
 
 
+def repro_cli():
+    """The fused training CLI twice from the same seed on a small scene
+    directory (REPRO_CLI_VIEWS views, full width, --nepoch 2: phases A, B,
+    C, each captured): every metric of every epoch and every parameter
+    equal, bit for bit."""
+    import torch
+    from mvsdf_tpu_torch.data.synthetic import write_scene_dir
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="mvsdf_repro_") as tmp:
+        data = write_scene_dir(tmp, n_images=REPRO_CLI_VIEWS,
+                               img_hw=(96, 128), depth_hw=(48, 64))
+        for i in range(2):
+            argv = ["--data_dir", data, "--exps_folder",
+                    os.path.join(tmp, "exps"), "--expname", f"repro{i}",
+                    "--pallas", "--allow_random_features", "--nepoch", "2"]
+            launches = []
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer = train_cli(argv, launches)
+            rows = [{k: r[k] for k in LOSSES + ("grad_norm", "lr",
+                                                 "hit_frac")}
+                    for r in metric_rows(trainer)]
+            runs.append((rows, [p.detach().clone()
+                                for p in trainer.state.net.parameters()],
+                         time.perf_counter() - t0, check_launches(launches)))
+            del trainer
+    (m_a, p_a, s_a, l_a), (m_b, p_b, s_b, _) = runs
+    same_p = sum(torch.equal(a, b) for a, b in zip(p_a, p_b))
+    log(f"[repro] the fused training CLI, {REPRO_CLI_VIEWS} views, epochs "
+        f"0..2, twice ({s_a:.1f} / {s_b:.1f} s): metrics "
+        f"{'equal' if m_a == m_b else 'DIFFERENT'} in every epoch (last "
+        f"loss {m_a[-1]['loss']!r} / {m_b[-1]['loss']!r}); {same_p} of "
+        f"{len(p_a)} parameter tensors equal to the bit; {l_a[0]} launches "
+        f"by chunk {l_a[1]}")
+    if m_a != m_b or same_p != len(p_a):
+        raise AssertionError("two fused CLI runs of one seed differ")
+
+
 def bench_phase(batch, dev):
     """Phase 18: the port's bench CLI with the default and the fused
     switches; entry() on the card; kernels 1 and 3 at width 64, then
@@ -2339,6 +2657,7 @@ def bench_phase(batch, dev):
     if not all(math.isfinite(v["loss"]) for v in legs):
         raise AssertionError("the dry run's loss is not finite")
     repro_check(batch, dev)
+    repro_cli()
     log(f"[bench] phase 18: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -2390,21 +2709,30 @@ def main():
         entries, tile_ms = check_sdf_mlps(net.implicit, packed, x, pe,
                                           weight_bytes)
         rays = bench_rays(batch, tcfg)
-        entries.append(check_secant(icfg, tcfg, packed, rays, weight_bytes,
-                                    tile_ms, entries[1]["max_abs_err"]))
+        sec, sec_args, sec_gate = check_secant(
+            icfg, tcfg, packed, rays, weight_bytes, tile_ms,
+            entries[1]["max_abs_err"])
+        entries.append(sec)
         entries.append(check_march(icfg, tcfg, packed, rays, weight_bytes,
                                    tile_ms))
+        entries += check_count_entries(net.implicit, tcfg, packed, x, pe,
+                                       sec_args, sec_gate, weight_bytes)
 
     # 3-6. the main path in both trace configurations
     state, launches, stats = train("train", cfg, batch, gen, dev,
                                    every_step=(), some_step=("sdf_mlp",),
                                    never=("sdf_mlp_xyz", "secant",
                                           "sphere_march"))
+    g_launches = graph_steps("train", cfg, batch, gen, dev, stats[0],
+                             every=("sdf_mlp_count",))
     eval_render("eval", cfg, state, batch, must=("sdf_mlp",))
-    state, f_launches, _ = train("train_fused", fcfg, batch, gen, dev,
-                                 every_step=("sphere_march",),
-                                 some_step=("sdf_mlp_xyz", "secant"),
-                                 never=("sdf_mlp",))
+    state, f_launches, f_stats = train(
+        "train_fused", fcfg, batch, gen, dev, every_step=("sphere_march",),
+        some_step=("sdf_mlp_xyz", "secant"), never=("sdf_mlp",))
+    fg_launches = graph_steps("train_fused", fcfg, batch, gen, dev,
+                              f_stats[0], every=("sphere_march",
+                                                 "sdf_mlp_xyz_count",
+                                                 "secant_count"))
     eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
     # the march's rows on the field the training steps left: rays take more
     # line searches on it than on the seed-0 sphere
@@ -2413,8 +2741,10 @@ def main():
                    tcfg, K.pack_sdf_weights(state.net.implicit),
                    icfg.multires, rays, tile_ms)
     for e in entries:
-        e["launches"] = (launches if e["name"] == "sdf_mlp"
-                         else f_launches)[e["name"]]
+        name = e["name"]
+        e["launches"] = (launches if name == "sdf_mlp" else g_launches
+                         if name == "sdf_mlp_count" else fg_launches
+                         if name.endswith("_count") else f_launches)[name]
 
     # 7-8. the training CLI on a DTU-sized scene directory, then the eval
     # CLI on its checkpoint; 9-10. the same with camera optimisation, then

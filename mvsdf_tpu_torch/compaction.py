@@ -1,13 +1,23 @@
 """Mask-compacted computation (port of ``mvsdf_tpu/compaction.py``).
 
 Runs a per-row function only on the rows a mask selects, gathered by index,
-and scatters its outputs into full-size targets. The JAX package needs
-fixed-capacity blocks, capacity cascades and a dense overflow branch to give
-XLA static shapes; eager PyTorch gathers exactly the active rows, so the
-capacity fields of ``TracerConfig`` / ``ModelConfig`` carry over from the
-JAX configs but do not change results (nor, here, what is computed beyond
-choosing where to compact). ``masked_call_into`` gives the same results
-with no gather, for ``torch.export`` (the static trace).
+and scatters its outputs into full-size targets. Three forms, one result per
+row:
+
+- ``compact_call_into`` gathers exactly the active rows (``nonzero``: a
+  host sync, and a shape that depends on the data). The per-epoch training
+  path and eval use it. The JAX package needs fixed-capacity blocks,
+  capacity cascades and a dense overflow branch to give XLA static shapes;
+  here the capacity fields of ``TracerConfig`` / ``ModelConfig`` carry over
+  from the JAX configs but do not change results.
+- ``bounded_call_into`` orders the rows on the device (active rows first,
+  stably) and hands ``fn`` the whole fixed-size block with the active count
+  as a 0-d device tensor: no host sync and no shape that depends on the
+  data, so a CUDA graph can capture it. The block holds every row, so it
+  needs no overflow branch; the kernels' count entries compute only the
+  rows below the count. The graph-replayed training step uses it.
+- ``masked_call_into`` runs ``fn`` on every row with no gather, for
+  ``torch.export`` (the static trace).
 """
 from __future__ import annotations
 
@@ -55,4 +65,41 @@ def masked_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
         m = mask if out_masks is None else out_masks[k]
         m = m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
         merged.append(torch.where(m, o.to(t.dtype), t))
+    return tuple(merged)
+
+
+def bounded_order(mask):
+    """Device-side stable compaction order of the rows of ``mask`` (any
+    shape, flattened): (perm, pos, count). ``perm`` (R,) lists the active
+    rows in order, then the others in order; ``pos`` (R,) is its inverse
+    (row r sits at block row pos[r]); ``count`` is the number of active
+    rows, a 0-d int32 tensor. A cumsum and one scatter of a permutation:
+    no host sync, no repeated index."""
+    m = mask.reshape(-1)
+    act = torch.cumsum(m, 0)
+    count = act[-1:].reshape(()) if m.numel() else act.sum()
+    rows = torch.arange(m.numel(), device=m.device)
+    pos = torch.where(m, act - 1, count + rows - act)
+    perm = torch.empty_like(pos).scatter_(0, pos, rows)
+    return perm, pos, count.to(torch.int32)
+
+
+def bounded_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
+                      out_masks: Optional[Sequence] = None) -> Tuple:
+    """``compact_call_into``'s results with no host sync: ``fn(count,
+    *block_inputs)`` gets every row, the ``count`` active rows first
+    (``bounded_order``), and must treat rows independently; only its
+    outputs on the active rows are kept (rows past ``count`` may hold
+    anything). With ``out_masks`` (each a subset of ``mask``), output k
+    replaces the rows of out_masks[k] only. Differentiable (gathers and
+    ``torch.where``)."""
+    if out_masks is not None and len(out_masks) != len(targets):
+        raise ValueError("out_masks must match targets 1:1")
+    perm, pos, count = bounded_order(mask)
+    outs = fn(count, *[a[perm] for a in per_row_inputs])
+    merged = []
+    for k, (t, o) in enumerate(zip(targets, outs)):
+        m = mask if out_masks is None else out_masks[k]
+        m = m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
+        merged.append(torch.where(m, o[pos].to(t.dtype), t))
     return tuple(merged)

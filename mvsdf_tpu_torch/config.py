@@ -8,9 +8,10 @@ from the end of phase A).
 
 Fields that only steer XLA in the JAX package (``shard_map_trace``,
 ``supervised_remat``, ``pallas_block``, ``pallas_march_block``,
-``pallas_interpret``, ``TrainConfig.fused_dispatch`` and
-``epochs_per_dispatch``, the capacity fractions) are accepted so configs
-carry over, and have no effect here.
+``pallas_interpret``, the capacity fractions) are accepted so configs
+carry over, and have no effect here. ``TrainConfig.fused_dispatch`` and
+``epochs_per_dispatch`` choose the trainer's path as in the JAX package
+(``train/loop.py``).
 """
 from __future__ import annotations
 
@@ -162,8 +163,12 @@ class TrainConfig:
     # stepped by SparseAdam at the constant learning_rate_cam.
     train_cameras: bool = False
     learning_rate_cam: float = 1e-4
-    fused_dispatch: bool = True     # no effect here
-    epochs_per_dispatch: int = 16   # no effect here
+    # Fused multi-epoch dispatch (one process): chunks of up to
+    # epochs_per_dispatch epochs, each step a CUDA-graph replay of the
+    # phase's captured step, metrics read one chunk behind; data-parallel
+    # runs always take the per-epoch path (train/loop.py).
+    fused_dispatch: bool = True
+    epochs_per_dispatch: int = 16
     # Skip the update (zero gradients into Adam) on a non-finite gradient.
     skip_nonfinite_updates: bool = True
 

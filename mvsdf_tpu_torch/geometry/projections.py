@@ -15,6 +15,13 @@ from __future__ import annotations
 import torch
 
 
+def _inv(m):
+    """torch.linalg.inv without its singularity check, which reads the
+    device's status on the host (a CUDA graph cannot capture that); the
+    same inverse."""
+    return torch.linalg.inv_ex(m)[0]
+
+
 def _apply(M, p):
     """M (..., i, j) @ p (..., j) with broadcasting -> (..., i)."""
     return torch.matmul(M, p.unsqueeze(-1)).squeeze(-1)
@@ -34,7 +41,7 @@ def world_to_cam(pts_hom, cam):
 
 def cam_to_world(pts_hom, cam, extr_inv=None):
     """Inverse of world_to_cam."""
-    E = torch.linalg.inv(cam[..., 0, :, :]) if extr_inv is None \
+    E = _inv(cam[..., 0, :, :]) if extr_inv is None \
         else extr_inv
     p = _apply(E, pts_hom)
     return p / (p[..., -1:] + 1e-9)
@@ -51,7 +58,7 @@ def cam_to_img(pts_cam_hom, cam):
 def img_to_cam(xy_hom, depth, cam, intr_inv=None):
     """Pixel coords (..., 3) (x, y, 1) + depth (...,) -> camera homogeneous
     coords (..., 4)."""
-    Kinv = torch.linalg.inv(cam[..., 1, :3, :3]) if intr_inv is None \
+    Kinv = _inv(cam[..., 1, :3, :3]) if intr_inv is None \
         else intr_inv
     p = _apply(Kinv, xy_hom)
     p = p / (p[..., -1:] + 1e-9) * depth[..., None]
@@ -82,7 +89,9 @@ def scale_camera(cam, scale):
 def normalize_pixel_coords(xy, height: int, width: int):
     """Pixel coords (..., 2) -> normalized [-1, 1] coords clamped to
     [-1.1, 1.1]."""
-    size = torch.tensor([width, height], dtype=xy.dtype, device=xy.device)
+    # filled on the device: a CUDA graph captures no host copy
+    size = torch.stack([torch.full((), float(v), dtype=xy.dtype,
+                                   device=xy.device) for v in (width, height)])
     return (xy / size * 2 - 1).clamp(-1.1, 1.1)
 
 

@@ -31,6 +31,15 @@ which hold the global draws.
 (``trace_rays(static=True)``) and takes the shading normals from the
 hand-derived value + gradient instead of autograd, so the pass can be
 captured by ``torch.export`` (``eval/export.py``).
+
+``bounded=True`` is the pass a CUDA graph captures (the graph-replayed
+training step, ``train/step.CapturableStep``): the trace's bounded
+formulation (``trace_rays(bounded=True)``), its SDF evaluations and secant
+through the kernels' count entries, and the supervised path and the
+shading dense, whatever ``supervised_compact_frac`` says: the JAX
+package's compact branch needs a dense overflow branch, which a graph
+would have to take as a conditional node, so the graph runs JAX's own
+``supervised_compact_frac=()`` formulation (exact, rows independent).
 """
 from __future__ import annotations
 
@@ -50,8 +59,10 @@ from ..geometry import projections as proj
 from ..geometry.cameras import get_camera_params
 from ..parallel import shard_bounds, world_size
 from ..tracing.kernels.march_kernel import sphere_march
-from ..tracing.kernels.sdf_mlp import pack_sdf_weights, sdf_mlp, sdf_mlp_xyz
-from ..tracing.kernels.secant_kernel import secant
+from ..tracing.kernels.sdf_mlp import (pack_sdf_weights, sdf_mlp,
+                                       sdf_mlp_count, sdf_mlp_xyz,
+                                       sdf_mlp_xyz_count)
+from ..tracing.kernels.secant_kernel import secant, secant_count
 from ..tracing.sphere_trace import TraceResult, trace_rays
 from .implicit_diff import differentiable_surface_points
 
@@ -131,7 +142,7 @@ def _dsurf_samples(cfg: ModelConfig, inputs, n_dsurf, generator, noise):
 
 def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                   object_mask, training, min_steps,
-                  static: bool = False) -> TraceResult:
+                  static: bool = False, bounded: bool = False) -> TraceResult:
     """The no-grad trace on the current parameters. With
     cfg.use_pallas_trace, its SDF evaluations go through the fused SDF-MLP
     kernel (with the positional encoding in the kernel when
@@ -139,14 +150,25 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
     cfg.use_pallas_secant hand the march and the secant to their fused
     kernels; all of them share one packing of the weights. Without
     use_pallas_trace those three flags are not read, as in the JAX
-    package. TracerConfig.sample_chunk has no effect on either path."""
+    package. TracerConfig.sample_chunk has no effect on either path.
+    ``bounded`` traces in the formulation a CUDA graph captures, the SDF
+    evaluations and the secant through the kernels' count entries (with
+    the positional encoding of the kernel-1 path computed in torch on the
+    whole block: no torch op stops at a count held on the device)."""
     tcfg = cfg.tracer
     march_fn = secant_fn = None
     with torch.no_grad():
         if cfg.use_pallas_trace:
             packed = pack_sdf_weights(net.implicit)
             multires = net.implicit.cfg.multires
-            if cfg.pallas_in_kernel_pe:
+            if bounded and cfg.pallas_in_kernel_pe:
+                def sdf_fn(x, count):
+                    return sdf_mlp_xyz_count(packed, multires, x, count)
+            elif bounded:
+                def sdf_fn(x, count):
+                    return sdf_mlp_count(
+                        packed, positional_encoding(x, multires), count)
+            elif cfg.pallas_in_kernel_pe:
                 def sdf_fn(x):
                     return sdf_mlp_xyz(packed, multires, x.reshape(-1, 3)
                                        ).reshape(x.shape[:-1])
@@ -158,31 +180,41 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                 def march_fn(o, d, mi, t_near, t_far):
                     return sphere_march(tcfg, packed, multires, o, d, mi,
                                         t_near, t_far)
-            if cfg.use_pallas_secant:
+            if cfg.use_pallas_secant and bounded:
+                def secant_fn(o, d, z_lo, z_hi, s_lo, s_hi, count):
+                    return secant_count(packed, multires,
+                                        tcfg.n_secant_steps, o, d, z_lo,
+                                        z_hi, s_lo, s_hi, count)
+            elif cfg.use_pallas_secant:
                 def secant_fn(o, d, z_lo, z_hi, s_lo, s_hi):
                     return secant(packed, multires, tcfg.n_secant_steps, o,
                                   d, z_lo, z_hi, s_lo, s_hi)
+        elif bounded:
+            # the plain field computes every row of the block
+            def sdf_fn(x, count):
+                return sdf_apply(net.implicit, x)
         else:
             def sdf_fn(x):
                 return sdf_apply(net.implicit, x)
         return trace_rays(tcfg, sdf_fn, org, dirs, object_mask,
                           training=training, minimal_steps=min_steps,
                           march_fn=march_fn, secant_fn=secant_fn,
-                          static=static)
+                          static=static, bounded=bounded)
 
 
 def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                    training: bool, gates: Gates = Gates(),
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[dict] = None,
-                   static: bool = False) -> RenderOut:
+                   static: bool = False, bounded: bool = False) -> RenderOut:
     """One renderer forward pass over a batch of pixel rays.
 
     inputs: uv (B, P, 2), intrinsics (B, 4, 4), pose (B, 4, 4) | (B, 7),
     object_mask (B, P); plus depths / depth_cams / center / size when the
     dsurf groups are gated on. Training mode needs ``generator`` or a
     ``noise`` dict holding every draw it makes. ``static`` (eval mode
-    only) gives the export's formulation."""
+    only) gives the export's formulation, ``bounded`` the one a CUDA graph
+    captures (module docstring)."""
     if static and training:
         raise ValueError("the static formulation is eval mode only")
     tcfg = cfg.tracer
@@ -212,7 +244,8 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
     else:
         min_steps = None
     tr = _frozen_trace(cfg, net, org.detach(), ray_dirs.detach(),
-                       object_mask, training, min_steps, static)
+                       object_mask, training, min_steps, static, bounded)
+    compact = bool(cfg.supervised_compact_frac) and not bounded
     dists = tr.dists.detach()
     net_obj_mask = tr.network_object_mask
     points = org + dists[..., None] * ray_dirs
@@ -251,7 +284,7 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                     (name, pts.reshape(B, half, 3)[:, lo:hi],
                      ok.reshape(B, half)[:, lo:hi].float()))
 
-        if cfg.supervised_compact_frac:
+        if compact:
             # Every consumer of the rt_surf group masks non-surface lanes to
             # zero, so its value + gradient run on the surface lanes only;
             # the other lanes hold zeros. Only the SDF and indicator columns
@@ -325,7 +358,7 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
             p, nrm, v = p.detach(), nrm.detach(), v.detach()
         return (render_apply(net.render, p, nrm, v, feats),)
 
-    if training and cfg.supervised_compact_frac:
+    if training and compact:
         # shading reads only surface lanes; the rest keep rgb = 1
         N = B * P
         sm_flat = surface_mask.reshape(N)

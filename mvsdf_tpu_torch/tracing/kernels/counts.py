@@ -1,0 +1,42 @@
+"""Launch counts of the trace's kernel wrappers, by name.
+
+Each wrapper adds one to its ``.launches`` where it launches its kernel.
+Under CUDA-graph replay the wrappers run once, at capture, and every replay
+launches the kernels again without them: the graph's owner takes
+``since(before)`` around the capture and ``add``s it once per replay, so
+the counts still mean launches.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """name -> wrapper function, for every kernel of the trace."""
+    from . import march_kernel as M
+    from . import sdf_mlp as K
+    from . import secant_kernel as S
+    return {"sdf_mlp": K.sdf_mlp, "sdf_mlp_xyz": K.sdf_mlp_xyz,
+            "secant": S.secant, "sphere_march": M.sphere_march,
+            "sdf_mlp_count": K.sdf_mlp_count,
+            "sdf_mlp_xyz_count": K.sdf_mlp_xyz_count,
+            "secant_count": S.secant_count}
+
+
+def snapshot() -> Dict[str, int]:
+    return {k: f.launches for k, f in wrappers().items()}
+
+
+def since(before: Dict[str, int]) -> Dict[str, int]:
+    """Launches of each kernel since ``before`` (a ``snapshot``)."""
+    return {k: v - before[k] for k, v in snapshot().items()}
+
+
+def add(launches: Dict[str, int]) -> None:
+    for k, f in wrappers().items():
+        f.launches += launches.get(k, 0)
+
+
+def zero() -> None:
+    for f in wrappers().values():
+        f.launches = 0

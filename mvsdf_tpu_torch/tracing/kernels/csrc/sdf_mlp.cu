@@ -26,6 +26,13 @@
 // zero rows and writes nothing for them. The padded width HP (64, 128, 256
 // or 512) selects the instantiation: each consumer warpgroup's `wgmma` is
 // m64 x n(HP / 2) x k16.
+//
+// Count entries (sdf_mlp_count_forward, sdf_mlp_xyz_count_forward): the
+// grid covers a fixed capacity of rows and the kernel reads the number of
+// rows to compute from device memory, so a CUDA graph can replay the
+// launch for whatever count the step's compaction left there. Blocks past
+// the count exit at once; the rows below it are computed as by the plain
+// entries, bit for bit.
 #include "mlp_tile_tc.cuh"
 
 namespace {
@@ -54,11 +61,23 @@ __device__ __forceinline__ void eval_block(const tc::Weights& w, int stages,
   if (tid < TM && row0 + tid < n) out[row0 + tid] = tc::tile_sdf(tile, w, tid);
 }
 
+// The rows to compute: all `cap` of them, or the first *count (capped at
+// `cap`) when the launch is a count entry's.
+__device__ __forceinline__ int live_rows(int cap,
+                                         const int* __restrict__ count) {
+  if (count == nullptr) return cap;
+  const int c = *count;
+  return c < 0 ? 0 : (c < cap ? c : cap);
+}
+
 template <int NWG>
 __global__ void __launch_bounds__(tc::THREADS, 1)
-sdf_mlp_kernel(const float* __restrict__ pe, int n, float* __restrict__ out,
+sdf_mlp_kernel(const float* __restrict__ pe, int cap,
+               const int* __restrict__ count, float* __restrict__ out,
                tc::Weights w, int stages) {
+  const int n = live_rows(cap, count);
   const long long row0 = (long long)blockIdx.x * TM;
+  if (row0 >= n) return;
   eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
     for (int i = threadIdx.x; i < TM * t.KP; i += CONSUMERS) {
       const int r = i / t.KP;
@@ -71,9 +90,12 @@ sdf_mlp_kernel(const float* __restrict__ pe, int n, float* __restrict__ out,
 
 template <int NWG>
 __global__ void __launch_bounds__(tc::THREADS, 1)
-sdf_mlp_xyz_kernel(const float* __restrict__ x, int n, int multires,
+sdf_mlp_xyz_kernel(const float* __restrict__ x, int cap,
+                   const int* __restrict__ count, int multires,
                    float* __restrict__ out, tc::Weights w, int stages) {
+  const int n = live_rows(cap, count);
   const long long row0 = (long long)blockIdx.x * TM;
+  if (row0 >= n) return;
   eval_block<NWG>(w, stages, row0, n, out, [&](const tc::PeTile& t) {
     if (threadIdx.x < TM * 3) {
       const long long i = row0 * 3 + threadIdx.x;
@@ -92,27 +114,37 @@ extern "C" {
 // success). All pointers are device pointers to contiguous arrays: pe
 // (n, d_pe) f32; w_stream the bf16 weight tiles and w_vec the f32 biases
 // and output column at the padded width HP, as tc::Weights describes them;
-// b_out (1) f32; out (n) f32.
-int sdf_mlp_forward(const float* pe, int n, int d_pe, int HP, int n_hid,
-                    unsigned skip_mask, const void* w_stream,
-                    const float* w_vec, const float* b_out, float* out,
-                    void* stream) {
+// b_out (1) f32; out (n) f32. `count` is null, or a device int: then only
+// the first *count rows (at most n) are computed and written.
+int sdf_mlp_count_forward(const float* pe, int n, const int* count, int d_pe,
+                          int HP, int n_hid, unsigned skip_mask,
+                          const void* w_stream, const float* w_vec,
+                          const float* b_out, float* out, void* stream) {
   if (n <= 0) return 0;
   const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
                       n_hid, skip_mask};
   if (!tc::weights_ok(w)) return (int)cudaErrorInvalidValue;
   return tc::dispatch_width(HP, [&](auto nwg) {
     return tc::launch(sdf_mlp_kernel<decltype(nwg)::value>, HP, w,
-                      (n + TM - 1) / TM, stream, pe, n, out);
+                      (n + TM - 1) / TM, stream, pe, n, count, out);
   });
 }
 
-// As sdf_mlp_forward, from the points x (n, 3) and the PE's multires
+int sdf_mlp_forward(const float* pe, int n, int d_pe, int HP, int n_hid,
+                    unsigned skip_mask, const void* w_stream,
+                    const float* w_vec, const float* b_out, float* out,
+                    void* stream) {
+  return sdf_mlp_count_forward(pe, n, nullptr, d_pe, HP, n_hid, skip_mask,
+                               w_stream, w_vec, b_out, out, stream);
+}
+
+// As sdf_mlp_count_forward, from the points x (n, 3) and the PE's multires
 // (d_pe must be 3 (1 + 2 multires)).
-int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe, int HP,
-                        int n_hid, unsigned skip_mask, const void* w_stream,
-                        const float* w_vec, const float* b_out, float* out,
-                        void* stream) {
+int sdf_mlp_xyz_count_forward(const float* x, int n, const int* count,
+                              int multires, int d_pe, int HP, int n_hid,
+                              unsigned skip_mask, const void* w_stream,
+                              const float* w_vec, const float* b_out,
+                              float* out, void* stream) {
   if (n <= 0) return 0;
   const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
                       n_hid, skip_mask};
@@ -120,8 +152,17 @@ int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe, int HP,
     return (int)cudaErrorInvalidValue;
   return tc::dispatch_width(HP, [&](auto nwg) {
     return tc::launch(sdf_mlp_xyz_kernel<decltype(nwg)::value>, HP, w,
-                      (n + TM - 1) / TM, stream, x, n, multires, out);
+                      (n + TM - 1) / TM, stream, x, n, count, multires, out);
   });
+}
+
+int sdf_mlp_xyz_forward(const float* x, int n, int multires, int d_pe, int HP,
+                        int n_hid, unsigned skip_mask, const void* w_stream,
+                        const float* w_vec, const float* b_out, float* out,
+                        void* stream) {
+  return sdf_mlp_xyz_count_forward(x, n, nullptr, multires, d_pe, HP, n_hid,
+                                   skip_mask, w_stream, w_vec, b_out, out,
+                                   stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,12 @@
 // the next step's first tiles arrive while the brackets are updated. The
 // whole refinement is one launch instead of one per step. Rows past n are
 // zero and never written.
+//
+// Count entry (secant_count_forward): the grid covers a fixed capacity of
+// rays and the kernel reads the number of rays to refine from device
+// memory, so a CUDA graph can replay the launch for whatever count the
+// step's compaction left there. Blocks past the count exit at once; the
+// rays below it are refined as by the plain entry, bit for bit.
 #include "mlp_tile_tc.cuh"
 
 namespace {
@@ -42,8 +48,15 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 secant_kernel(const float* __restrict__ org, const float* __restrict__ dirs,
               const float* __restrict__ z_lo, const float* __restrict__ z_hi,
               const float* __restrict__ s_lo, const float* __restrict__ s_hi,
-              int n, int multires, int n_steps, float* __restrict__ out,
-              tc::Weights w, int stages) {
+              int cap, const int* __restrict__ count, int multires,
+              int n_steps, float* __restrict__ out, tc::Weights w,
+              int stages) {
+  int n = cap;
+  if (count != nullptr) {
+    const int c = *count;
+    n = c < 0 ? 0 : (c < cap ? c : cap);
+  }
+  if ((long long)blockIdx.x * TM >= n) return;
   __shared__ float o[TM * 3], d[TM * 3];
   __shared__ float zl[TM], zh[TM], sl[TM], sh[TM], zp[TM];
   const tc::Tile tile = tc::tile_init<NWG>(w, stages);
@@ -106,13 +119,16 @@ extern "C" {
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Device pointers to contiguous f32 arrays: org, dirs (n, 3);
 // z_lo, z_hi, s_lo, s_hi (n); the weights as sdf_mlp_forward takes them
-// (d_pe must be 3 (1 + 2 multires)); out (n) receives z_pred.
-int secant_forward(const float* org, const float* dirs, const float* z_lo,
-                   const float* z_hi, const float* s_lo, const float* s_hi,
-                   int n, int multires, int n_steps, int d_pe, int HP,
-                   int n_hid, unsigned skip_mask, const void* w_stream,
-                   const float* w_vec, const float* b_out, float* out,
-                   void* stream) {
+// (d_pe must be 3 (1 + 2 multires)); out (n) receives z_pred. `count` is
+// null, or a device int: then only the first *count rays (at most n) are
+// refined and written.
+int secant_count_forward(const float* org, const float* dirs,
+                         const float* z_lo, const float* z_hi,
+                         const float* s_lo, const float* s_hi, int n,
+                         const int* count, int multires, int n_steps,
+                         int d_pe, int HP, int n_hid, unsigned skip_mask,
+                         const void* w_stream, const float* w_vec,
+                         const float* b_out, float* out, void* stream) {
   if (n <= 0) return 0;
   const tc::Weights w{(const __nv_bfloat16*)w_stream, w_vec, b_out, d_pe,
                       n_hid, skip_mask};
@@ -122,8 +138,19 @@ int secant_forward(const float* org, const float* dirs, const float* z_lo,
   return tc::dispatch_width(HP, [&](auto nwg) {
     return tc::launch(secant_kernel<decltype(nwg)::value>, HP, w,
                       (n + TM - 1) / TM, stream, org, dirs, z_lo, z_hi, s_lo,
-                      s_hi, n, multires, n_steps, out);
+                      s_hi, n, count, multires, n_steps, out);
   });
+}
+
+int secant_forward(const float* org, const float* dirs, const float* z_lo,
+                   const float* z_hi, const float* s_lo, const float* s_hi,
+                   int n, int multires, int n_steps, int d_pe, int HP,
+                   int n_hid, unsigned skip_mask, const void* w_stream,
+                   const float* w_vec, const float* b_out, float* out,
+                   void* stream) {
+  return secant_count_forward(org, dirs, z_lo, z_hi, s_lo, s_hi, n, nullptr,
+                              multires, n_steps, d_pe, HP, n_hid, skip_mask,
+                              w_stream, w_vec, b_out, out, stream);
 }
 
 }  // extern "C"

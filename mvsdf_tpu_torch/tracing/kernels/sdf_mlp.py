@@ -32,6 +32,12 @@ hi = bf16(v) and lo = bf16(v - hi), summed in f32.
 - ``sdf_mlp`` and ``sdf_mlp_xyz`` run the plain version for a tensor on the
   CPU, and for a CUDA tensor launch the kernel or raise. Their
   ``.launches`` count kernel launches.
+- ``sdf_mlp_count`` and ``sdf_mlp_xyz_count`` are the kernels' count
+  entries: a fixed capacity of rows, of which the kernel computes the first
+  ``count`` (a 0-d int32 on the device that it reads itself) and leaves the
+  rest 0. The graph-replayed training step evaluates its compacted blocks
+  through them (``compaction.bounded_call_into``); their plain versions are
+  ``sdf_mlp_count_reference`` and ``sdf_mlp_xyz_count_reference``.
 
 The kernels are built at first use (``build.py``).
 """
@@ -458,6 +464,108 @@ def sdf_mlp_xyz(packed: PackedSDF, multires: int,
 
 
 sdf_mlp_xyz.launches = 0
+
+
+def _count_arg(count: torch.Tensor, device: torch.device) -> int:
+    """The device pointer of a count entry's row count: a 0-d int32 on the
+    rows' device."""
+    check_tensors(device, torch.int32, count=count)
+    if count.dim() != 0:
+        raise ValueError("count must be a 0-d int32 tensor")
+    return count.data_ptr()
+
+
+def first_rows(count: torch.Tensor, n: int) -> int:
+    """A CPU count as the plain versions read it: the rows below it, at
+    most n."""
+    return max(0, min(int(count), n))
+
+
+def sdf_mlp_count_reference(packed: PackedSDF, pe: torch.Tensor,
+                            count: torch.Tensor) -> torch.Tensor:
+    """Plain version of the count entry: the first ``count`` rows of pe as
+    ``sdf_mlp_reference`` computes them, the rest 0."""
+    out = torch.zeros(pe.shape[0], dtype=torch.float32, device=pe.device)
+    k = first_rows(count, pe.shape[0])
+    out[:k] = sdf_mlp_reference(packed, pe[:k])
+    return out
+
+
+def sdf_mlp_xyz_count_reference(packed: PackedSDF, multires: int,
+                                x: torch.Tensor,
+                                count: torch.Tensor) -> torch.Tensor:
+    """Plain version of the in-kernel-PE count entry: the first ``count``
+    rows of x as ``sdf_mlp_xyz_reference`` computes them, the rest 0."""
+    out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    k = first_rows(count, x.shape[0])
+    out[:k] = sdf_mlp_xyz_reference(packed, multires, x[:k])
+    return out
+
+
+def sdf_mlp_count(packed: PackedSDF, pe: torch.Tensor,
+                  count: torch.Tensor) -> torch.Tensor:
+    """``sdf_mlp`` on the first ``count`` rows of pe (N, d_pe), the rest of
+    the (N,) result 0; ``count`` is a 0-d int32 on pe's device, read by the
+    kernel, so the launch never waits on the host and a CUDA graph can
+    replay it for any count. The grid covers all N rows; blocks past the
+    count exit at once.
+
+    A CPU tensor goes through ``sdf_mlp_count_reference``; a CUDA tensor
+    through the kernel (raising if it cannot run). Each kernel launch adds
+    one to ``sdf_mlp_count.launches``."""
+    if pe.dim() != 2 or pe.dtype != torch.float32:
+        raise ValueError("pe must be a 2-D f32 tensor")
+    if on_cpu(pe, "sdf_mlp_count"):
+        return sdf_mlp_count_reference(packed, pe, count)
+    pe = pe.contiguous()
+    n, d_pe = pe.shape
+    if d_pe != packed.d_pe:
+        raise ValueError(f"pe has {d_pe} lanes, the weights {packed.d_pe}")
+    cptr = _count_arg(count, pe.device)
+    wargs = tc_weight_args(packed, pe.device)
+    out = torch.zeros(n, dtype=torch.float32, device=pe.device)
+    if n == 0:
+        return out
+    fn = build.function("sdf_mlp_count_forward",
+                        (PTR, INT, PTR, *TC_WEIGHT_ARGTYPES, PTR, PTR))
+    raise_on_error(fn(pe.data_ptr(), n, cptr, *wargs, out.data_ptr(),
+                      stream(pe.device)), "sdf_mlp_count")
+    sdf_mlp_count.launches += 1
+    return out
+
+
+sdf_mlp_count.launches = 0
+
+
+def sdf_mlp_xyz_count(packed: PackedSDF, multires: int, x: torch.Tensor,
+                      count: torch.Tensor) -> torch.Tensor:
+    """``sdf_mlp_xyz`` on the first ``count`` rows of x (N, 3), the rest of
+    the (N,) result 0; ``count`` as ``sdf_mlp_count`` takes it.
+
+    A CPU tensor goes through ``sdf_mlp_xyz_count_reference``; a CUDA
+    tensor through the kernel (raising if it cannot run). Each kernel
+    launch adds one to ``sdf_mlp_xyz_count.launches``."""
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError("x must be an (N, 3) f32 tensor")
+    check_multires(packed, multires)
+    if on_cpu(x, "sdf_mlp_xyz_count"):
+        return sdf_mlp_xyz_count_reference(packed, multires, x, count)
+    x = x.contiguous()
+    n = x.shape[0]
+    cptr = _count_arg(count, x.device)
+    wargs = tc_weight_args(packed, x.device)
+    out = torch.zeros(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    fn = build.function("sdf_mlp_xyz_count_forward",
+                        (PTR, INT, PTR, INT, *TC_WEIGHT_ARGTYPES, PTR, PTR))
+    raise_on_error(fn(x.data_ptr(), n, cptr, multires, *wargs,
+                      out.data_ptr(), stream(x.device)), "sdf_mlp_xyz_count")
+    sdf_mlp_xyz_count.launches += 1
+    return out
+
+
+sdf_mlp_xyz_count.launches = 0
 
 
 def flops_per_point(cfg: ImplicitConfig) -> int:

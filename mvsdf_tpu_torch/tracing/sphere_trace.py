@@ -23,6 +23,15 @@ mask says (``compaction.masked_call_into``), and nothing gathers or tests
 a mask on the host. It reuses the stages below, so a ray's result is the
 gathered path's.
 
+``trace_rays(bounded=True)`` is the formulation a CUDA graph captures (the
+graph-replayed training step): the same fixed iteration counts and
+masks, but each SDF evaluation, each fallback stage and the secant run on
+a block ordered on the device with the active rows first
+(``compaction.bounded_call_into``), and ``sdf_fn`` / ``secant_fn`` take
+the active count as a 0-d device tensor, so the kernels' count entries
+compute those rows alone. No host sync, no shape that depends on the
+data; a ray's result is again the gathered path's.
+
 Stages:
   1. ray/bounding-sphere intersection
   2. bidirectional sphere tracing + line search
@@ -40,7 +49,8 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..compaction import compact_call_into, masked_call_into
+from ..compaction import (bounded_call_into, compact_call_into,
+                          masked_call_into)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,12 +106,20 @@ def _mask_update(unfin2, next2, thr):
     return unfin2 & (curr2 > thr), curr2
 
 
-def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False):
+def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False,
+                bounded=False):
     """``base`` with lanes ``sel`` replaced by clip(sdf(org + t dirs));
-    ``static`` evaluates every lane."""
+    ``static`` evaluates every lane, ``bounded`` the block of
+    ``bounded_call_into`` (``sdf_fn(points, count)``)."""
     if static:
         val = sdf_fn(org2 + t2[..., None] * dirs2).clamp(-clip, clip)
         return torch.where(sel, val, base)
+    if bounded:
+        pts = (org2 + t2[..., None] * dirs2).reshape(-1, 3)
+        (out,) = bounded_call_into(
+            lambda c, p: (sdf_fn(p, c).clamp(-clip, clip),), sel.reshape(-1),
+            [pts], [base.reshape(-1)])
+        return out.reshape(base.shape)
     out = base.clone()
     if sel.any():
         p = org2[sel] + t2[sel][:, None] * dirs2[sel]
@@ -110,40 +128,44 @@ def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False):
 
 
 def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
-                 i0: int, i1: int, init: bool, static: bool = False):
+                 i0: int, i1: int, init: bool, static: bool = False,
+                 bounded: bool = False):
     """Bidirectional march iterations [i0, i1) on flat (N,)-ray state.
 
     org, dirs (N, 3); unfin2, t2, next2 (2, N): start and end march states
     stacked on axis 0. ``init`` also computes the pre-loop evaluation at the
     seeded t values. Inactive lanes keep their t and a next value of 0, so
-    the iterations that ``static`` runs past the last active lane change
-    nothing."""
+    the iterations that ``static`` and ``bounded`` run past the last active
+    lane change nothing."""
     thr = cfg.sdf_threshold
     clip = cfg.dist_clip
+    fixed = static or bounded
     org2 = org.expand(2, *org.shape)
     dirs2 = dirs.expand(2, *dirs.shape)
-    sign2 = torch.tensor([[1.0], [-1.0]], dtype=t2.dtype, device=t2.device)
+    # [[1], [-1]], made on the device (a graph captures no host copy)
+    sign2 = 1.0 - 2.0 * torch.arange(2, dtype=t2.dtype,
+                                     device=t2.device)[:, None]
     zeros = torch.zeros_like(t2)
 
     if init:
         next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
-                            static)
+                            static, bounded)
 
     i = i0
-    while i < i1 and (static or bool(unfin2.any())):
+    while i < i1 and (fixed or bool(unfin2.any())):
         unfin2, curr2 = _mask_update(unfin2, next2, thr)
         t2 = t2 + sign2 * curr2
         next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
-                            static)
+                            static, bounded)
         # line search halving the overshoot: the start march steps t down,
         # the end march steps t up
         not_proj = next2 < 0
         j = 0
-        while j < cfg.line_step_iters and (static or bool(not_proj.any())):
+        while j < cfg.line_step_iters and (fixed or bool(not_proj.any())):
             step = ((1 - cfg.line_search_step) / (2.0 ** j)) * curr2
             t2 = torch.where(not_proj, t2 - sign2 * step, t2)
             next2 = _eval_where(sdf_fn, org2, dirs2, t2, not_proj, clip,
-                                next2, static)
+                                next2, static, bounded)
             not_proj = next2 < 0
             j += 1
         unfin2 = unfin2 & (t2[0] < t2[1])[None]
@@ -168,10 +190,13 @@ def _segments(cfg: TracerConfig):
 
 
 def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
-                  t_near, t_far, static: bool = False):
+                  t_near, t_far, static: bool = False,
+                  bounded: bool = False):
     """Bidirectional sphere tracing. org, dirs (L..., 3); mask_intersect,
     t_near, t_far (L...). Returns (unfinished_start, t_start, t_end).
-    ``static`` marches every lane through all iterations, uncompacted."""
+    ``static`` and ``bounded`` march every lane through all iterations,
+    with no segment gathers (``bounded`` evaluates each step's active
+    lanes on a device-ordered block)."""
     lead = mask_intersect.shape
     R = mask_intersect.numel()
     orgf = org.reshape(R, 3)
@@ -185,14 +210,14 @@ def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
                                  device=t_near.device))
     next2 = torch.zeros_like(t2)
 
-    segments = [(0, cfg.sphere_tracing_iters, False)] if static else \
-        _segments(cfg)
+    segments = [(0, cfg.sphere_tracing_iters, False)] if static or \
+        bounded else _segments(cfg)
     for i0, i1, compact in segments:
         init = i0 == 0
         if not compact:
             unfin2, t2, next2 = _march_iters(cfg, sdf_fn, orgf, dirsf,
                                              unfin2, t2, next2, i0, i1, init,
-                                             static)
+                                             static, bounded)
             continue
         active = mi if init else (unfin2[0] | unfin2[1])
 
@@ -223,10 +248,13 @@ def _sample_points(org, dirs, t_lo, t_hi, steps):
 
 def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
                    pts, sdf_val, training: bool, secant_fn=None,
-                   static: bool = False):
+                   static: bool = False, bounded=None):
     """Sampler post-processing on flat (N,) rays with samples (N, S): first
     sign crossing, min-SDF fallback, secant (``secant_fn`` when given, on
     the rays it refines only; ``static``: on every ray, kept on those).
+    ``bounded`` is (count-taking sdf_fn, live rows (N,) bool) inside a
+    ``bounded_call_into`` block: the secant then runs on a block of its
+    own, its rays first, and ``secant_fn`` takes their count.
     Returns (points, net_surface, dists)."""
     S = cfg.n_steps
     weight = torch.arange(S, 0, -1, dtype=sdf_val.dtype,
@@ -241,6 +269,21 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
     p = _take(pts, pick)
 
     secant_sel = (net_surface & object_mask) if training else net_surface
+    if bounded is not None:
+        count_sdf, live = bounded
+        s = secant_sel & live
+        z_high, sdf_high = _take(ts, ind), _take(sdf_val, ind)
+        ind_lo = (ind - 1) % S
+        args = [org, dirs, _take(ts, ind_lo), z_high, _take(sdf_val, ind_lo),
+                sdf_high]
+        if secant_fn is None:
+            fn = lambda c, *a: (_secant(cfg.n_secant_steps,
+                                        lambda x: count_sdf(x, c), *a),)
+        else:
+            fn = lambda c, *a: (secant_fn(*a, c),)
+        (d,) = bounded_call_into(fn, s, args, [d])
+        p = torch.where(s[:, None], org + d[:, None] * dirs, p)
+        return p, net_surface, d
     if static or bool(secant_sel.any()):
         z_high = _take(ts, ind)
         sdf_high = _take(sdf_val, ind)
@@ -297,12 +340,13 @@ def _linspace(cfg: TracerConfig, like):
 
 
 def _ray_sampler(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, t_min,
-                 t_max, training: bool, secant_fn=None, static=False):
+                 t_max, training: bool, secant_fn=None, static=False,
+                 bounded=None):
     """Uniform interval sampling + secant on flat (N,) rays."""
     ts, pts = _sample_points(org, dirs, t_min, t_max, _linspace(cfg, t_min))
     sdf_val = sdf_fn(pts)
     return _sampler_logic(cfg, sdf_fn, org, dirs, object_mask, ts, pts,
-                          sdf_val, training, secant_fn, static)
+                          sdf_val, training, secant_fn, static, bounded)
 
 
 def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
@@ -316,7 +360,7 @@ def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
 
 def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                       is_smp, t_lo, t_hi, steps01, training: bool,
-                      secant_fn=None, static: bool = False):
+                      secant_fn=None, static: bool = False, bounded=None):
     """One n_steps-sample evaluation serving both fallback stages: sampler
     rows (is_smp) use the uniform linspace, fill rows the stratified
     steps01. Returns (points, net_surface, dists) on flat (N,) rays."""
@@ -326,7 +370,7 @@ def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     sdf_val = sdf_fn(pts)
     smp_p, smp_net, smp_d = _sampler_logic(
         cfg, sdf_fn, org, dirs, object_mask, ts, pts, sdf_val, training,
-        secant_fn, static)
+        secant_fn, static, bounded)
     idx = torch.argmin(sdf_val, dim=-1)
     mn_p, mn_d = _take(pts, idx), _take(ts, idx)
     p = torch.where(is_smp[:, None], smp_p, mn_p)
@@ -358,7 +402,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                training: bool, generator: Optional[torch.Generator] = None,
                minimal_steps: Optional[torch.Tensor] = None,
                march_fn=None, secant_fn=None,
-               static: bool = False) -> TraceResult:
+               static: bool = False, bounded: bool = False) -> TraceResult:
     """Full tracing pipeline. org, dirs (L..., 3); object_mask (L...) bool.
     ``sdf_fn`` maps points (..., 3) to SDF values (...). ``minimal_steps``
     (n_steps,) in [0, 1) fixes the stratified fill samples; otherwise they
@@ -369,18 +413,40 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     schedule then does not apply), and ``secant_fn(org, dirs, z_low,
     z_high, sdf_low, sdf_high) -> z_pred`` the secant, on (N,) rays: the
     fused kernels take these places. ``static`` gives the formulation with
-    no data-dependent control flow or shape (module docstring)."""
+    no data-dependent control flow or shape (module docstring), and
+    ``bounded`` the one a CUDA graph captures: there ``sdf_fn(points (M,
+    3), count)`` need only compute the first ``count`` rows (a 0-d int32 on
+    the device) and ``secant_fn`` takes that count as a last argument."""
+    if static and bounded:
+        raise ValueError("trace_rays takes static or bounded, not both")
     lead = org.shape[:-1]
     R = org[..., 0].numel()
     mask_intersect, t_near, t_far = sphere_intersection(
         org, dirs, cfg.object_bounding_sphere)
     zero = torch.zeros_like(t_near)
 
-    call_into = masked_call_into if static else compact_call_into
+    if static:
+        call_into = masked_call_into
+    elif bounded:
+        def call_into(fn, mask, inputs, targets, out_masks=None):
+            # fn runs on the device-ordered block: its SDF evaluations
+            # compute the rows of the first `count` rays alone
+            def block(c, *a):
+                n = a[0].shape[0]
+                live = torch.arange(n, device=a[0].device) < c
+
+                def rows_sdf(x):
+                    per = x[..., 0].numel() // max(n, 1)
+                    return sdf_fn(x.reshape(-1, 3), c * per).reshape(
+                        x.shape[:-1])
+                return fn(*a, sdf=rows_sdf, bounded=(sdf_fn, live))
+            return bounded_call_into(block, mask, inputs, targets, out_masks)
+    else:
+        call_into = compact_call_into
     if march_fn is None:
         unfin_s, t_s, t_e = _sphere_trace(cfg, sdf_fn, org, dirs,
                                           mask_intersect, t_near, t_far,
-                                          static)
+                                          static, bounded)
     else:
         unfin_s, t_s, t_e = march_fn(org, dirs, mask_intersect, t_near,
                                      t_far)
@@ -419,9 +485,9 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
         active = sampler_mask | fill
         t_lo = torch.where(sampler_mask, t_s, min_dis)
         t_hi = torch.where(sampler_mask, t_e, max_dis)
-        fn = lambda o, d, m, sm, lo, hi: _unified_fallback(
-            cfg, sdf_fn, o, d, m, sm, lo, hi, steps01, training, secant_fn,
-            static)
+        fn = lambda o, d, m, sm, lo, hi, sdf=sdf_fn, bounded=None: \
+            _unified_fallback(cfg, sdf, o, d, m, sm, lo, hi, steps01,
+                              training, secant_fn, static, bounded)
         p_f, net_f, d_f = call_into(
             fn, flat(active),
             [flat(org), flat(dirs), flat(object_mask), flat(sampler_mask),
@@ -439,8 +505,8 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
 
     smp_t_min = torch.where(sampler_mask, t_s, zero)
     smp_t_max = torch.where(sampler_mask, t_e, zero)
-    fn = lambda o, d, m, lo, hi: _ray_sampler(cfg, sdf_fn, o, d, m, lo, hi,
-                                              training, secant_fn, static)
+    fn = lambda o, d, m, lo, hi, sdf=sdf_fn, bounded=None: _ray_sampler(
+        cfg, sdf, o, d, m, lo, hi, training, secant_fn, static, bounded)
     smpf = flat(sampler_mask)
     p_f, net_f, d_f = call_into(
         fn, smpf, [flat(org), flat(dirs), flat(object_mask),
@@ -467,8 +533,8 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     fill = (in_mask | out_mask) & mask_intersect
     min_dis = torch.where(net_obj_mask & out_mask, dists, min_dis)
     steps01 = draw_steps()
-    fn = lambda o, d, lo, hi: _minimal_sdf_points(cfg, sdf_fn, o, d, lo, hi,
-                                                  steps01)
+    fn = lambda o, d, lo, hi, sdf=sdf_fn, bounded=None: _minimal_sdf_points(
+        cfg, sdf, o, d, lo, hi, steps01)
     fillf = flat(fill)
     p_f, d_f = call_into(
         fn, fillf, [flat(org), flat(dirs), flat(min_dis), flat(max_dis)],

@@ -69,8 +69,9 @@ def sparse_adam_step(state: SparseAdamState, pose_vecs: torch.Tensor,
     m = torch.where(t, b1 * state.m + (1 - b1) * grads, state.m)
     v = torch.where(t, b2 * state.v + (1 - b2) * grads ** 2, state.v)
     step = state.step + 1
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32,
-                                 device=pose_vecs.device)
+    # filled on the device: a CUDA graph captures no host copy
+    f32 = lambda x: torch.full((), x, dtype=torch.float32,
+                               device=pose_vecs.device)
     bc1 = 1 - f32(b1) ** step.float()
     bc2 = 1 - f32(b2) ** step.float()
     upd = torch.where(t, -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps),

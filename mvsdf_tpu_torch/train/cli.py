@@ -17,6 +17,12 @@ batch split over them (``parallel/``):
 The processes join a NCCL group (gloo with ``--platform cpu``; a caller
 that has already joined a group keeps it); ``--no_mesh`` runs one process
 and refuses a launch of several.
+
+With one process the trainer runs the fused multi-epoch dispatch (chunks
+of up to ``--epochs_per_dispatch`` epochs, each phase's step captured once
+into a CUDA graph and replayed; on the CPU the same chunks run eagerly),
+as the JAX CLI runs its ``lax.scan`` chunks; ``--no_fused``, and every
+data-parallel run, take the per-epoch host loop (``train/loop.py``).
 """
 from __future__ import annotations
 
@@ -69,10 +75,13 @@ def parse_args(argv=None):
                                                        "gpu"],
                     help="'cpu' runs on the CPU; the default is the GPU")
     ap.add_argument("--no_fused", action="store_true",
-                    help="accepted for the JAX CLI's sake; no effect (every "
-                         "epoch is dispatched on its own)")
+                    help="disable the fused multi-epoch dispatch (chunks of "
+                         "epochs as CUDA-graph replays of a captured step, "
+                         "the batches gathered from the device-resident "
+                         "scene); falls back to the per-epoch host loop")
     ap.add_argument("--epochs_per_dispatch", type=int, default=16,
-                    help="accepted for the JAX CLI's sake; no effect")
+                    help="the most epochs one chunk of the fused dispatch "
+                         "runs")
     ap.add_argument("--profile_dir", default="",
                     help="capture a torch.profiler trace (Chrome format) of "
                          "the first --profile_epochs epochs into this "

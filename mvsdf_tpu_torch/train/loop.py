@@ -11,14 +11,34 @@ then the image order from ``np.random.default_rng(seed)``, in the JAX
 package's order, and each step gathers its batch on the device from the
 batch's image indices and that subset. Per-step noise comes from one
 ``torch.Generator`` on the model's device, seeded from ``cfg.train.seed``;
-its state is checkpointed with the host RNG's. The JAX package's fused
-multi-epoch dispatch (``lax.scan``) has no counterpart: every epoch runs
-the per-epoch path, so ``fused_dispatch`` and ``epochs_per_dispatch`` have
-no effect. Metrics are read once per epoch (the last step's), so the loop
-adds no host sync a step beyond the training step's own. With
-``train_cameras`` the camera poses start from ``scene.pose_init`` and the
-step trains them; mesh snapshots and the full render keep the
-ground-truth poses (``scene.poses``), as the JAX package's do.
+its state is checkpointed with the host RNG's. With ``train_cameras`` the
+camera poses start from ``scene.pose_init`` and the step trains them; mesh
+snapshots and the full render keep the ground-truth poses
+(``scene.poses``), as the JAX package's do.
+
+Two paths, as in the JAX package:
+- the fused multi-epoch dispatch (``cfg.train.fused_dispatch``, the
+  default, with one process): the counterpart of the JAX package's
+  ``lax.scan`` over a chunk of up to ``epochs_per_dispatch`` epochs. Each
+  phase gets one ``step.CapturableStep``, captured into a CUDA graph at
+  its first chunk (after any resume) and replayed step after step. A
+  chunk's host plan (the pixel subset, then the image order, each epoch,
+  in the per-epoch path's stream order, and Adam's scalars) is drawn
+  first and uploaded in one copy; before each replay the step's row is
+  copied into the graph's static input on the device. No replay waits on
+  the host. Each replay's metrics go into the chunk's buffer, read one
+  chunk behind (after the next chunk is queued); each epoch logs its last
+  step, and ``rays_per_s`` and ``ms_per_step`` are the chunk's. A chunk
+  closes at save epochs, phase changes, the ``profile_epochs`` cut and
+  ``epochs_per_dispatch``; checkpoints, snapshots and full renders run
+  between chunks. A torch graph holds one step, so a short chunk replays
+  fewer times (JAX pads its scan to a fixed length instead). On the CPU
+  the same chunk path runs the same step eagerly.
+- the per-epoch path (``train_epoch``), for ``--no_fused`` and for data
+  parallel runs: the host drives every step, and metrics are read once an
+  epoch (the last step's).
+The two paths take the same batches and draws, and their checkpoints are
+interchangeable.
 
 Data parallel (``parallel/``, one process a GPU): every rank loads the
 scene, draws the same host plan and the same per-step noise, and trains
@@ -31,8 +51,10 @@ restores the same checkpoint.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -41,12 +63,12 @@ import torch
 from ..config import MVSDFConfig
 from ..data.scene import SceneData
 from ..device import resolve_device
-from ..parallel import barrier, rank, validate_ray_divisibility
+from ..parallel import barrier, rank, validate_ray_divisibility, world_size
 from . import checkpoints as ckpt
 from .device_data import DeviceSceneCache
 from .metrics import MetricsLogger, Throughput, annotate, profile_trace
-from .step import advance_epoch, init_train_state, make_train_step, \
-    milestones
+from .step import (METRIC_KEYS, CapturableStep, adam_scalars, advance_epoch, init_train_state, make_train_step,
+                   milestones)
 
 
 class Trainer:
@@ -69,6 +91,7 @@ class Trainer:
         self.log = log_fn if self.main else (lambda *_: None)
         self.device = resolve_device(device)
         self.steps = {}        # phase_idx -> train step
+        self.fused_steps = {}  # phase_idx -> CapturableStep
         # the linear-method camera initialisation where the scene has one,
         # the ground-truth poses otherwise (ref idr_train.py:121-127)
         self.state = init_train_state(
@@ -87,7 +110,9 @@ class Trainer:
         self.profile_epochs = profile_epochs
         # wall times of the loop's other work, for whoever drives it
         self.timings = {"save_ms": [], "restore_ms": [], "mesh_ms": [],
-                        "render_s": []}
+                        "render_s": [], "capture_s": {}, "graph_bytes": {}}
+        # the fused path's chunk whose metrics are not read yet
+        self._pending = None
         self.last_render = None   # (epoch, image index, rgb (1, HW, 3))
         self.cache = DeviceSceneCache(scene, self.device)
         self.log(f"device scene cache: {self.cache.nbytes() / 1e6:.1f} MB "
@@ -124,6 +149,8 @@ class Trainer:
                              f"the {self.device.type} generator keeps its "
                              f"seed")
         self._follow_schedule()
+        # graphs hold the replaced state tensors' addresses
+        self.fused_steps.clear()
         self._sync()
         self.timings["restore_ms"].append((time.perf_counter() - t0) * 1e3)
         self.start_epoch = epoch + 1
@@ -186,6 +213,177 @@ class Trainer:
         self._log_epoch(epoch, n_rays / (t1 - t0), m, phase=phase_idx,
                         steps=n_steps, ms_per_step=ms_step)
         return m
+
+    # ------------------------------------------------------------------
+    # The fused multi-epoch dispatch (module docstring).
+    def _chunk_end(self, e0: int) -> int:
+        """Last epoch of the chunk starting at e0: it stops at a save
+        epoch (a checkpoint holds the state just after it), before a phase
+        change, at nepochs and at the dispatch cap."""
+        cfg = self.cfg
+        nepochs = cfg.train.nepochs
+        phase0 = cfg.schedule.phase_index(e0 / nepochs)
+        e = e0
+        cap = e0 + self._dispatch_epochs() - 1
+        while e < min(cap, nepochs):
+            if e % self.plot_freq == 0 and e != 0:
+                break
+            nxt = e + 1
+            if cfg.schedule.phase_index(nxt / nepochs) != phase0:
+                break
+            e = nxt
+        return e
+
+    def _dispatch_epochs(self) -> int:
+        """The most epochs a chunk runs: epochs_per_dispatch, and never
+        more than plot_freq + 1 (the longest chunk a save epoch allows)."""
+        return max(1, min(self.cfg.train.epochs_per_dispatch,
+                          self.plot_freq + 1))
+
+    def _get_fused_step(self, phase_idx: int, weights) -> CapturableStep:
+        step = self.fused_steps.get(phase_idx)
+        if step is None:
+            step = CapturableStep(self.cfg, phase_idx, weights, self.state,
+                                  self.cache, self.generator)
+            self.fused_steps[phase_idx] = step
+        elif step.weights != weights:
+            raise ValueError(f"phase {phase_idx}'s weights changed within "
+                             f"the phase: {step.weights} != {weights}")
+        return step
+
+    def _plan_chunk(self, e0: int, e1: int, step: CapturableStep):
+        """The host plan of epochs [e0, e1], drawn in the per-epoch path's
+        stream order, as (K, row) int32; the schedule and Adam's step
+        count move on as the steps will."""
+        cfg = self.cfg
+        B = cfg.train.batch_size
+        opt = self.state.optimizer
+        rows, epochs = [], []
+        for epoch in range(e0, e1 + 1):
+            self.scene.change_sampling_idx(cfg.train.num_pixels, self.rng)
+            sel = self.scene.sampling_idx
+            if sel is None:
+                sel = np.arange(self.scene.total_pixels)
+            order = self.rng.permutation(self.scene.n_images)
+            for i in range(0, self.scene.n_images - B + 1, B):
+                t = int(step.adam[0][2]) + 1
+                for _, _, st in step.adam:
+                    st += 1
+                rows.append(step.plan_row(order[i:i + B], sel,
+                                          adam_scalars(opt, t)))
+                epochs.append(epoch)
+            with warnings.catch_warnings():
+                # this path steps Adam itself, never optimizer.step()
+                warnings.filterwarnings("ignore", "Detected call of")
+                advance_epoch(self.state)
+        return np.stack(rows), epochs, len(sel)
+
+    def _train_chunk(self, e0: int, e1: int):
+        """Epochs [e0, e1] as replays of the phase's captured step (eager
+        steps on the CPU), with no host sync; the previous chunk's metrics
+        are read once this one is queued."""
+        cfg = self.cfg
+        nepochs = cfg.train.nepochs
+        phase_idx = cfg.schedule.phase_index(e0 / nepochs)
+        weights = cfg.schedule.weights(e0 / nepochs)
+        for e in range(e0 + 1, e1 + 1):
+            if cfg.schedule.weights(e / nepochs) != weights:
+                raise ValueError(f"the weights of epochs {e0} and {e} differ "
+                                 f"within one chunk")
+        step = self._get_fused_step(phase_idx, weights)
+        plan, epochs, n_sel = self._plan_chunk(e0, e1, step)
+        with annotate(f"train_chunk[{e0}:{e1}]"):
+            chunk = self._dispatch(step, plan, epochs)
+        if chunk["capture_s"] is not None:
+            self.timings["capture_s"][phase_idx] = chunk["capture_s"]
+            self.timings["graph_bytes"][phase_idx] = step.graph_bytes
+            self.log(f"phase {phase_idx}: step captured in "
+                     f"{chunk['capture_s']:.2f} s, graph pool "
+                     f"{step.graph_bytes / 2 ** 20:.1f} MiB")
+        chunk.update(phase=phase_idx,
+                     rays=cfg.train.batch_size * n_sel)
+        self._flush_metrics()
+        self._pending = chunk
+
+    def _dispatch(self, step: CapturableStep, plan_np: np.ndarray, epochs):
+        """Upload the plan (K, row) in one copy and run its K steps: each
+        step's row copied into ``step.row`` on the device, then a replay
+        (the phase's first step: the warm-up and the capture), its metrics
+        copied into row k of the chunk's buffer, and that buffer copied to
+        pinned host memory behind them. Nothing here waits on the device
+        once the step is captured. Returns the chunk's record for
+        ``_flush_metrics``: its epochs, metrics buffer, the event after its
+        copy, CUDA events around its replays, the host seconds of this
+        call, the capture's seconds (or None) and the pinned plan, which
+        must live until its copy has run."""
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        plan = torch.from_numpy(plan_np)
+        if cuda:
+            plan = plan.pin_memory()
+        plan_d = plan.to(self.device, non_blocking=True)
+        out = torch.empty((len(epochs), len(METRIC_KEYS)),
+                          dtype=torch.float32, device=self.device)
+        chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
+                 "replays": 0, "done": None, "events": None}
+        with contextlib.ExitStack() as spans:
+            for k in range(len(epochs)):
+                if k == 0 or epochs[k] != epochs[k - 1]:
+                    spans.close()
+                    spans.enter_context(annotate(f"epoch[{epochs[k]}]"))
+                step.row.copy_(plan_d[k])
+                if step.graph is None and cuda:
+                    step.capture()   # step k is the warm-up
+                    chunk["capture_s"] = step.capture_s
+                else:
+                    if cuda and chunk["events"] is None:
+                        chunk["events"] = [torch.cuda.Event(
+                            enable_timing=True) for _ in range(2)]
+                        chunk["events"][0].record()
+                    step()
+                    chunk["replays"] += 1
+                out[k].copy_(step.metrics)
+        if cuda:
+            if chunk["events"] is not None:
+                chunk["events"][1].record()
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            chunk["done"] = torch.cuda.Event()
+            chunk["done"].record()
+            out = host
+        chunk["out"] = out
+        chunk["host_s"] = time.perf_counter() - t0
+        return chunk
+
+    def _flush_metrics(self):
+        """Read and log the pending chunk's metrics. The read waits on the
+        chunk's own event, not on the work queued after it, so the device
+        stays busy with the next chunk. ``ms_per_step`` is the device time
+        of the chunk's replays over their count (CUDA events); for a chunk
+        with none (the CPU, or a phase's first chunk of one step: the
+        warm-up), the host time of its dispatch less the capture's."""
+        chunk, self._pending = self._pending, None
+        if chunk is None:
+            return
+        if chunk["done"] is not None:
+            chunk["done"].synchronize()
+        m_np = chunk["out"].numpy()
+        epochs = chunk["epochs"]
+        if chunk["events"] is not None:
+            e0, e1 = chunk["events"]
+            ms_step = e0.elapsed_time(e1) / chunk["replays"]
+        else:
+            ms_step = (chunk["host_s"] - (chunk["capture_s"] or 0.0)) / \
+                len(epochs) * 1e3
+        ms_step = max(ms_step, 1e-6)
+        self.throughput.add(chunk["rays"] * len(epochs))
+        steps = epochs.count(epochs[0])
+        for epoch in sorted(set(epochs)):
+            last = max(k for k, e in enumerate(epochs) if e == epoch)
+            m = {k: float(v) for k, v in zip(METRIC_KEYS, m_np[last])}
+            self._log_epoch(epoch, chunk["rays"] / ms_step * 1e3, m,
+                            phase=chunk["phase"], steps=steps,
+                            ms_per_step=ms_step)
 
     def _log_epoch(self, epoch, rays_per_s, m, **extra):
         cfg = self.cfg
@@ -267,28 +465,43 @@ class Trainer:
             self.profile_dir and self.profile_epochs > 0 and self.main) \
             else None
         prof_remaining = self.profile_epochs
+        # as the JAX package: the chunk path with one process
+        fused = cfg.train.fused_dispatch and world_size() == 1
         if prof is not None:
             prof.__enter__()
         try:
-            for epoch in range(self.start_epoch, cfg.train.nepochs + 1):
-                self.train_epoch(epoch)
+            epoch = self.start_epoch
+            while epoch <= cfg.train.nepochs:
+                if fused:
+                    e1 = self._chunk_end(epoch)
+                    if prof is not None:
+                        e1 = min(e1, epoch + prof_remaining - 1)
+                    self._train_chunk(epoch, e1)
+                else:
+                    e1 = epoch
+                    self.train_epoch(epoch)
                 if prof is not None:
-                    prof_remaining -= 1
+                    prof_remaining -= e1 + 1 - epoch
                     if prof_remaining <= 0:
+                        self._flush_metrics()
                         self._sync()
                         prof.__exit__(None, None, None)
                         prof = None
-                if epoch % self.plot_freq == 0 and epoch != 0:
-                    self.save(epoch)
-                    try:
-                        # full render every 4th plot (ref :324-328)
-                        full = (epoch // self.plot_freq) % 4 == 0
-                        self.plot(epoch, full=full)
-                    except Exception as exc:  # never kill training
-                        self.log(f"plot failed at epoch {epoch}: {exc}")
+                for e in range(epoch, e1 + 1):
+                    if e % self.plot_freq == 0 and e != 0:
+                        self._flush_metrics()
+                        self.save(e)
+                        try:
+                            # full render every 4th plot (ref :324-328)
+                            full = (e // self.plot_freq) % 4 == 0
+                            self.plot(e, full=full)
+                        except Exception as exc:  # never kill training
+                            self.log(f"plot failed at epoch {e}: {exc}")
+                epoch = e1 + 1
         finally:
             if prof is not None:
                 prof.__exit__(None, None, None)
+        self._flush_metrics()
         self.save(cfg.train.nepochs)
         rates = self.throughput.rates()
         self.log(f"training done: {rates['rays_per_s']:.0f} rays/s "

@@ -14,9 +14,15 @@ supervised value + gradient through fields/fused_grad.py). Reports:
   - a torch.profiler window over the following steps: device time by
     kernel, each trace kernel's device time with the launches and rows of
     that same window (the trace's work follows the training state, so the
-    two windows differ), and the device's busy share of the window.
+    two windows differ), and the device's busy share of the window;
+  - with --chunk, the same state then trained on as the trainer's fused
+    dispatch runs a chunk: the step captured into a CUDA graph
+    (train/step.CapturableStep, the bench batch served whatever the plan
+    says), a plan of --steps rows uploaded in one copy and replayed row by
+    row: the capture's seconds and graph pool, the window's ms/step, device
+    time by kernel and busy share, beside the per-epoch window's.
 
-    python3 scripts/port_step_profile.py [--fused] [--fused_grad]
+    python3 scripts/port_step_profile.py [--fused] [--fused_grad] [--chunk]
         [--steps 5] [--out f]
 
 Prints the result as JSON (and writes it to --out if given). Needs a GPU.
@@ -45,6 +51,9 @@ def main():
     ap.add_argument("--fused_grad", action="store_true",
                     help="the supervised value + gradient through the "
                          "hand-derived fused backward")
+    ap.add_argument("--chunk", action="store_true",
+                    help="also profile a chunk of graph replays of the "
+                         "captured step")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args()
@@ -194,10 +203,82 @@ def main():
                                     for k, v in top},
         "hit_frac": float(metrics["hit_frac"]),
     }
+    if args.chunk:
+        res["chunk"] = chunk_window(cfg, state, batch, weights, gen,
+                                    args.steps)
     print(json.dumps(res, indent=1))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
+
+
+def device_ms(prof):
+    """{kernel name: (device ms, launches)} of a profile."""
+    from torch.autograd import DeviceType
+    kern = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            kern[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
+    return kern
+
+
+def chunk_window(cfg, state, batch, weights, gen, steps):
+    """The state trained on by a CapturableStep: captured (its warm-up a
+    real step), 3 replays, then a profiled window of ``steps`` replays of
+    a plan uploaded in one pinned copy, as train/loop.Trainer._dispatch
+    runs a chunk."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import B, P, BatchCache
+    from mvsdf_tpu_torch.train.step import (METRIC_KEYS, CapturableStep,
+                                            adam_scalars)
+    step = CapturableStep(cfg, 1, weights, state, BatchCache(batch), gen)
+    opt = state.optimizer
+
+    def rows(n):
+        out = []
+        for _ in range(n):
+            t = int(step.adam[0][2]) + 1
+            for _, _, st in step.adam:
+                st += 1
+            out.append(step.plan_row(np.arange(B), np.arange(P),
+                                     adam_scalars(opt, t)))
+        return torch.from_numpy(np.stack(out)).pin_memory()
+
+    def run(plan):
+        plan_d = plan.to(step.device, non_blocking=True)
+        out = torch.empty((len(plan), step.metrics.numel()),
+                          device=step.device)
+        for k in range(len(plan)):
+            step.row.copy_(plan_d[k])
+            step()
+            out[k].copy_(step.metrics)
+        return out
+
+    step.row.copy_(rows(1)[0].to(step.device))
+    step.capture()
+    run(rows(3))
+    torch.cuda.synchronize()
+    plan = rows(steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run(plan)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kern = device_ms(prof)
+    busy_ms = sum(v[0] for v in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"capture_s": step.capture_s, "graph_pool_bytes":
+            step.graph_bytes, "launches_per_replay": step.launches,
+            "window_ms": window_ms, "step_ms": window_ms / steps,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / window_ms,
+            "top_kernels_ms_per_step": {k: [v[0] / steps, v[1] / steps]
+                                        for k, v in top},
+            "hit_frac": float(out[-1, METRIC_KEYS.index("hit_frac")])}
 
 
 if __name__ == "__main__":

@@ -330,8 +330,10 @@ model{
 @pytest.mark.cuda
 def test_training_cli_on_the_card(cuda, tmp_path, monkeypatch):
     """The training CLI on a 3-view on-disk scene, epochs 0..4 (phases A,
-    B, C, C, C) through --pallas on the card: finite losses, the SDF-MLP
-    kernel launched in every epoch, checkpoints and meshes."""
+    B, C, C, C) through --pallas on the card, on its fused default: finite
+    losses, the SDF-MLP kernel's count entry launched in every chunk (the
+    chunks close at the phase changes and the save epochs 2 and 4),
+    checkpoints and meshes."""
     import json
     from mvsdf_tpu_torch.data.synthetic import write_scene_dir
     from mvsdf_tpu_torch.train import cli
@@ -341,15 +343,15 @@ def test_training_cli_on_the_card(cuda, tmp_path, monkeypatch):
     conf.write_text(CLI_CONF)
     launches = []
     from mvsdf_tpu_torch.train import loop
-    train_epoch = loop.Trainer.train_epoch
+    train_chunk = loop.Trainer._train_chunk
 
-    def counted(self, epoch):
-        before = K.sdf_mlp.launches
-        out = train_epoch(self, epoch)
-        launches.append(K.sdf_mlp.launches - before)
+    def counted(self, e0, e1):
+        before = K.sdf_mlp_count.launches
+        out = train_chunk(self, e0, e1)
+        launches.append(K.sdf_mlp_count.launches - before)
         return out
 
-    monkeypatch.setattr(loop.Trainer, "train_epoch", counted)
+    monkeypatch.setattr(loop.Trainer, "_train_chunk", counted)
     trainer = cli.main(["--data_dir", data, "--pallas",
                         "--allow_random_features", "--conf", str(conf),
                         "--batch_size", "3", "--nepoch", "4",
@@ -360,7 +362,7 @@ def test_training_cli_on_the_card(cuda, tmp_path, monkeypatch):
             open(os.path.join(trainer.exp_dir, "metrics.jsonl"))]
     assert [r["phase"] for r in rows] == [0, 1, 2, 2, 2]
     assert all(np.isfinite(r["loss"]) for r in rows)
-    assert len(launches) == 5 and min(launches) > 0, launches
+    assert len(launches) == 4 and min(launches) > 0, launches
     assert open(os.path.join(trainer.ckpt_dir, "latest.txt")).read() == "4"
     for e in (2, 4):
         assert os.path.exists(os.path.join(trainer.plots_dir,
@@ -879,3 +881,180 @@ def test_two_runs_on_the_card_are_bit_equal(cuda, tmp_path):
     assert a.keys() == b.keys() and np.isfinite(a["m4:loss"])
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], k)
+
+
+@pytest.mark.cuda
+@WIDTHS
+def test_count_entries_match_their_plain_versions(cuda, kw):
+    """The count entries of kernels 1-3 at a capacity of 4097 rows, at
+    counts 0, 1, 64, 65, 1000 and all: the first count rows equal the plain
+    entry's kernel on them bit for bit (the same arithmetic), the rest are
+    0, and all are within the kernels' own tolerances of the count
+    entries' plain versions (1e-4 on SDF values of order 1; the secant's
+    roots 1e-4 + 1e-4 |z|, on the brackets of the geometric init's
+    sphere)."""
+    torch.manual_seed(0)
+    packed = _packed(kw, cuda, 0.02)
+    sphere = _packed(kw, cuda, 0.0)
+    n = 4097
+    x = torch.rand((n, 3), device=cuda) * 2 - 1
+    pe = positional_encoding(x, 6)
+    sec = tuple(a[:n].contiguous() for a in _brackets(sphere, cuda, n))
+    for rows in (0, 1, 64, 65, 1000, n):
+        c = torch.tensor(rows, dtype=torch.int32, device=cuda)
+        for fn, kernel, plain in (
+                (lambda: K.sdf_mlp_count(packed, pe, c),
+                 lambda: K.sdf_mlp(packed, pe[:rows]),
+                 lambda: K.sdf_mlp_count_reference(packed, pe, c)),
+                (lambda: K.sdf_mlp_xyz_count(packed, 6, x, c),
+                 lambda: K.sdf_mlp_xyz(packed, 6, x[:rows]),
+                 lambda: K.sdf_mlp_xyz_count_reference(packed, 6, x, c)),
+                (lambda: S.secant_count(sphere, 6, 8, *sec, c),
+                 lambda: S.secant(sphere, 6, 8, *(a[:rows] for a in sec)),
+                 lambda: S.secant_count_reference(sphere, 6, 8, *sec, c))):
+            got, ref = fn(), plain()
+            first = kernel() if rows else got[:0]
+            torch.cuda.synchronize()
+            assert got.shape == (n,)
+            assert torch.equal(got[:rows], first), rows
+            assert not got[rows:].any()
+            assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+
+
+def _capturable(cuda, cameras=False, fused=False):
+    """A CapturableStep of a small configuration on a 2-image bench batch
+    (served whatever the row says), from seed 0, its row at Adam's first
+    step."""
+    from mvsdf_tpu_torch.config import (ModelConfig, MVSDFConfig,
+                                        TrainConfig)
+    from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
+    from mvsdf_tpu_torch.fields.radiance import RenderConfig
+    from mvsdf_tpu_torch.train.cameras_opt import pose_vecs_from_matrices
+    from mvsdf_tpu_torch.train.step import (CapturableStep, adam_scalars,
+                                            init_train_state)
+    flags = dict(use_pallas_march=True, use_pallas_secant=True,
+                 pallas_in_kernel_pe=True) if fused else {}
+    cfg = MVSDFConfig(
+        model=ModelConfig(implicit=t_sdf.ImplicitConfig(**SMALL),
+                          render=RenderConfig(feature_vector_size=16,
+                                              dims=(64, 64)),
+                          use_pallas_trace=True, **flags),
+        train=TrainConfig(batch_size=2, num_pixels=512,
+                          train_cameras=cameras))
+    sc = make_scene(n_images=2, n_pix=512, feat_ch=16)
+    batch = scene_to_torch(sc, cuda)
+    batch["indices"] = torch.tensor([1, 0], device=cuda)
+    pv0 = pose_vecs_from_matrices(np.concatenate([sc["pose"]] * 2))
+    state = init_train_state(cfg, seed=0, device=cuda,
+                             pose_init=pv0 if cameras else None)
+
+    class Served:
+        device = cuda
+
+        def gather(self, indices, sel):
+            return batch
+
+    step = CapturableStep(cfg, 1, cfg.schedule.weights(0.3), state,
+                          Served(), torch.Generator(device=cuda).manual_seed(0))
+
+    def row(t):
+        for _, _, st in step.adam:
+            st += 1
+        return torch.from_numpy(step.plan_row(
+            np.array([1, 0]), np.arange(512),
+            adam_scalars(state.optimizer, t))).to(cuda)
+    return step, row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cameras,fused", [(False, False), (True, False),
+                                           (False, True)],
+                         ids=["sdf_mlp", "cameras", "fused_kernels"])
+def test_graph_replay_equals_the_eager_capturable_step(cuda, cameras,
+                                                       fused):
+    """The captured step replayed from the same state, row and generator
+    state as its eager run: every tensor it writes equal to the bit; the
+    kernels' launches added once per replay."""
+    from mvsdf_tpu_torch.tracing.kernels import counts
+    step, row = _capturable(cuda, cameras, fused)
+    step.row.copy_(row(1))
+    step.capture()
+    assert step.launches.get("sdf_mlp_xyz_count" if fused else
+                             "sdf_mlp_count")
+    step.row.copy_(row(2))
+    written = step.written()
+    before = [t.clone() for t in written]
+    gen = step.generator.get_state()
+    step.eager()
+    torch.cuda.synchronize()
+    eager = [t.clone() for t in written]
+    with torch.no_grad():
+        for t, b in zip(written, before):
+            t.copy_(b)
+    step.generator.set_state(gen)
+    launched = counts.snapshot()
+    step()
+    torch.cuda.synchronize()
+    assert counts.since(launched) == {k: step.launches.get(k, 0)
+                                      for k in launched}
+    for i, (a, b) in enumerate(zip(written, eager)):
+        assert torch.equal(a, b), i
+    assert torch.isfinite(step.metrics).all()
+
+
+@pytest.mark.cuda
+def test_graph_replays_never_sync(cuda):
+    """Replays of a plan uploaded in one pinned copy, each row copied into
+    the step's static input on the device: no synchronizing operation
+    under set_sync_debug_mode("error"), and the generator moves on as it
+    does for eager steps."""
+    step, row = _capturable(cuda)
+    step.row.copy_(row(1))
+    step.capture()
+    plan = torch.stack([row(t).cpu() for t in range(2, 6)]).pin_memory()
+    out = torch.empty((4, step.metrics.numel()), device=cuda)
+    offset = step.generator.get_offset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan_d = plan.to(cuda, non_blocking=True)
+        for k in range(4):
+            step.row.copy_(plan_d[k])
+            step()
+            out[k].copy_(step.metrics)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert step.generator.get_offset() > offset
+
+
+def _adam_pair(device):
+    """torch.optim.Adam and ``step.adam_update`` on the same parameters and
+    gradients (magnitudes 1 to 1e-5) for 6 steps: their parameters."""
+    from mvsdf_tpu_torch.train.step import adam_scalars, adam_update
+    g = torch.Generator(device=device).manual_seed(0)
+    shapes = [(512, 512), (512,), (39, 512), (1,)]
+    init = [torch.randn(s, generator=g, device=device) for s in shapes]
+    grads = [[torch.randn(s, generator=g, device=device) * 10.0 ** -(i % 6)
+              for i, s in enumerate(shapes)] for _ in range(6)]
+    ref = [p.clone().requires_grad_(True) for p in init]
+    opt = torch.optim.Adam(ref, lr=1.6e-3, betas=(0.9, 0.999), eps=1e-8)
+    got = [p.clone() for p in init]
+    state = [(torch.zeros_like(p), torch.zeros_like(p), None) for p in got]
+    for t, gs in enumerate(grads, 1):
+        for p, gr in zip(ref, gs):
+            p.grad = gr.clone()
+        opt.step()
+        step_neg, bc2, _ = (torch.full((), v, device=device)
+                            for v in adam_scalars(opt, t))
+        adam_update(got, gs, state, step_neg, bc2, (0.9, 0.999), 1e-8)
+    return [p.detach() for p in ref], got
+
+
+@pytest.mark.cuda
+def test_adam_update_equals_torch_adam_on_the_card(cuda):
+    """The capturable step's Adam is the optimizer's own multi-tensor
+    update on the card, to the bit."""
+    ref, got = _adam_pair(cuda)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)

@@ -260,7 +260,7 @@ def _recording_trainers(env, exp_dir, seen):
     jcfg = dataclasses.replace(jcfg, train=dataclasses.replace(
         jcfg.train, plot_freq=0.2, fused_dispatch=False))
     tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(
-        tcfg.train, plot_freq=0.2))
+        tcfg.train, plot_freq=0.2, fused_dispatch=False))
     logs = []
     jt = JTrainer(jcfg, JScene(env["scene5"], allow_random_features=True),
                   os.path.join(exp_dir, "j"), use_mesh=False,
