@@ -34,7 +34,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   secant_count) at count 0, a quarter and all of their
                   capacity: the first count rows equal to the plain entry's
                   kernel bit for bit, the rest 0, all within the plain
-                  version's tolerance; their times at those counts
+                  version's tolerance; their times at those counts; then
+                  the bounded blocks' tiles as conditional nodes of a CUDA
+                  graph (the plain field on the march's block, the PE on
+                  the fallback's) replayed at those counts: the tiles
+                  below the count equal the plain call bit for bit, the
+                  rest untouched, no sync; their times
   3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
                   images x P=4096 rays, full-width model from seed 0, on the
                   synthetic bench scene: the trace through sdf_mlp; then the
@@ -113,7 +118,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   phase 7's times the thresholded masks, image_hd equal to
                   phase 7's images, world_mats within f32 rounding of phase
                   7's; then the training CLI on the converted scene
-                  (--nepoch 2): finite losses, sdf_mlp only
+                  (--nepoch 2) on its plain default (no --pallas: the
+                  plain field's trace, each phase's step captured with the
+                  field's tiles as conditional nodes and replayed): finite
+                  losses, no kernel launched; its last phase's graph: one
+                  replay against the eager step (equal bits), an epoch's
+                  steps under set_sync_debug_mode("error"); capture s,
+                  graph pool, ms/step
   13. ddp         data parallel: epoch 0 (phase A) of phase 7's scene and
                   configuration through the training CLI's Trainer in two
                   processes on this card, a gloo group (NCCL refuses two
@@ -283,7 +294,8 @@ PROB_DIVS = (4, 2, 1)
 PROB_HIGH, PROB_LOW = 0.95, 0.05
 CUT_HALF = 1.1                 # cut.ply: uniform in [-1.1, 1.1]^3
 CONVERT_EPOCHS = 2
-CONVERT_ARGS = ("--pallas", "--allow_random_features", "--nepoch",
+# the training CLI's plain default: the trace through the plain field
+CONVERT_ARGS = ("--allow_random_features", "--nepoch",
                 str(CONVERT_EPOCHS), "--batch_size", str(B),
                 "--num_pixels", str(P))
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -720,6 +732,62 @@ def check_count_entries(net, tcfg, packed, x, pe, sec_args, sec_gate,
     return out
 
 
+def check_conditional_nodes(net, x, rays):
+    """The bounded blocks' tiles as conditional nodes of a CUDA graph
+    (``compaction.bounded_rows`` on ``tracing/kernels/graph_cond``): the
+    plain field's SDF column on the march's block (two lanes a bench ray)
+    and the positional encoding on the fallback's (n_steps samples a
+    bench ray), captured once and replayed at count 0, COUNT_SHARE and all
+    rows under set_sync_debug_mode("error"): the tiles below the count
+    equal the plain call on those rows bit for bit, the others keep what
+    they held. Prints each replay's device ms beside the plain call's on
+    the whole block."""
+    import torch
+    from mvsdf_tpu_torch.compaction import bounded_rows, tile_rows
+    from mvsdf_tpu_torch.fields.embedder import positional_encoding
+    from mvsdf_tpu_torch.fields.sdf import sdf_apply
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    dev = x.device
+    n_rays = rays[0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    arms = (("plain field, march block", 2 * n_rays,
+             lambda a, c: sdf_apply(net, a), ()),
+            ("positional encoding, fallback block", 100 * n_rays,
+             lambda a, c: positional_encoding(a, net.cfg.multires),
+             (3 + 6 * net.cfg.multires,)))
+    for name, m, fn, width in arms:
+        pts = torch.rand((m, 3), generator=g, device=dev) * 2 - 1
+        whole = fn(pts, None)
+        buf = torch.full((m, *width), -1.0, device=dev)
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        bodies = ConditionalBodies(dev)
+        with torch.cuda.graph(graph), bodies:
+            bounded_rows(fn, pts, count, buf)
+        tile = tile_rows(m)
+        ms = []
+        for n in (0, int(m * COUNT_SHARE), m):
+            count.fill_(n)
+            buf.fill_(-1.0)
+            torch.cuda.synchronize()
+            with sync_debug_error():
+                ms.append(cuda_ms(graph.replay, iters=3))
+            live = min(-(-n // tile) * tile, m)
+            if not (torch.equal(buf[:live], whole[:live]) and
+                    (buf[live:] == -1.0).all()):
+                raise AssertionError(f"conditional nodes, {name}, count {n}"
+                                     f": the tiles differ")
+        log(f"[kernel] conditional nodes ({name}, {m} rows in tiles of "
+            f"{tile}): replays at counts 0 / {int(m * COUNT_SHARE)} / {m} "
+            f"equal the plain call on the tiles below the count bit for "
+            f"bit and leave the rest, no sync; {ms[0]:.3f} / {ms[1]:.3f} / "
+            f"{ms[2]:.3f} ms against {cuda_ms(lambda: fn(pts, None)):.3f} "
+            f"ms for the plain call on the whole block")
+        graph.reset()
+        bodies.release()
+        del whole, buf
+
+
 class BatchCache:
     """Serves the bench batch to a CapturableStep whatever its row's
     image and pixel ids say: every bench step takes the same batch, as the
@@ -1006,17 +1074,18 @@ def train_cli(argv, launches):
             setattr(loop.Trainer, name, run)
 
 
-def check_launches(launches, fused=True):
+def check_launches(launches, fused=True, pallas=True):
     """A training CLI's kernel launches, by chunk or by epoch: the SDF-MLP's
     count entry in every chunk of a fused run (the captured step's trace),
-    sdf_mlp in every epoch of a --no_fused run, and no other kernel.
-    Returns (that kernel, its launches by chunk or epoch)."""
-    want = "sdf_mlp_count" if fused else "sdf_mlp"
-    if not launches or min(e[want] for e in launches) == 0 or any(
-            e[k] for e in launches for k in e if k != want):
+    sdf_mlp in every epoch of a --no_fused run, and no other kernel; none
+    at all without --pallas. Returns (that kernel, its launches by chunk
+    or epoch)."""
+    want = ("sdf_mlp_count" if fused else "sdf_mlp") if pallas else None
+    if not launches or (want and min(e[want] for e in launches) == 0) or \
+            any(e[k] for e in launches for k in e if k != want):
         raise AssertionError(f"kernel launches by "
                              f"{'chunk' if fused else 'epoch'} {launches}")
-    return want, [e[want] for e in launches]
+    return want, [e[want] if want else 0 for e in launches]
 
 
 def check_restored(trainer):
@@ -1053,14 +1122,15 @@ def check_restored(trainer):
         raise AssertionError(f"restored state differs from the saved: {bad}")
 
 
-def check_cli_graph(trainer):
-    """After the CLI's fused run, its phase-C graph: one more epoch's plan
-    drawn; its first step replayed against the eager capturable step from
-    the same state (equal bits), its other steps dispatched as the chunk
-    path does under set_sync_debug_mode("error") (no synchronizing
-    operation). Leaves the trainer a step ahead of its checkpoint."""
+def check_cli_graph(trainer, tag="cli"):
+    """After the CLI's fused run, its last phase's graph (the one the
+    trainer keeps): one more epoch's plan drawn; its first step replayed
+    against the eager capturable step from the same state (equal bits),
+    its other steps dispatched as the chunk path does under
+    set_sync_debug_mode("error") (no synchronizing operation). Leaves the
+    trainer a step ahead of its checkpoint."""
     import torch
-    step = trainer.fused_steps[2]
+    (phase, step), = trainer.fused_steps.items()
     e = trainer.cfg.train.nepochs
     plan, epochs, _ = trainer._plan_chunk(e, e, step)
     step.row.copy_(torch.from_numpy(plan[0]).to(trainer.device))
@@ -1069,7 +1139,8 @@ def check_cli_graph(trainer):
         chunk = trainer._dispatch(step, plan[1:], epochs[1:])
     chunk["done"].synchronize()
     m = chunk["out"]
-    log(f"[cli graph] phase C's captured step: one replay against the "
+    log(f"[{tag} graph] phase {'ABC'[phase]}'s captured step: one replay "
+        f"against the "
         f"eager capturable step "
         f"{'equal bits' if not bad else f'differs: {bad[:5]}'}; "
         f"{len(epochs) - 1} steps dispatched under set_sync_debug_mode("
@@ -2000,15 +2071,21 @@ def convert_phase(tmp, data_dir):
     if [r["step"] for r in rows] != list(range(CONVERT_EPOCHS + 1)) or \
             not all(np.isfinite(r[k]) for r in rows for k in LOSSES):
         raise AssertionError(f"training on the converted scene: {rows}")
-    kernel, by_chunk = check_launches(launches)
+    check_launches(launches, pallas=False)
     sc = trainer.scene
-    log(f"[convert] training CLI on the converted scene: {wall:.1f} s, "
+    t = trainer.timings
+    log(f"[convert] training CLI on the converted scene, the plain field on "
+        f"the fused default: {wall:.1f} s, "
         f"scene load {sc.timings['load_s']:.2f} s; losses "
-        f"{[round(r['loss'], 6) for r in rows]}, finite; {kernel} launches "
-        f"by chunk {by_chunk}, the other kernels "
-        f"none; ms/step by phase "
+        f"{[round(r['loss'], 6) for r in rows]}, finite; no kernel "
+        f"launched in {len(launches)} chunks; capture s "
+        f"{ {k: round(v, 2) for k, v in t['capture_s'].items()} }, graph "
+        f"pool MiB "
+        f"{ {k: round(v / 2 ** 20, 1) for k, v in t['graph_bytes'].items()} }"
+        f"; ms/step by phase "
         f"{ {k: round(v[0], 1) for k, v in phase_times(rows, B * P).items()} }"
         f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check_cli_graph(trainer, "convert")
     log(f"[convert] phase 12 after the fixtures: "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -2717,6 +2794,7 @@ def main():
                                    tile_ms))
         entries += check_count_entries(net.implicit, tcfg, packed, x, pe,
                                        sec_args, sec_gate, weight_bytes)
+        check_conditional_nodes(net.implicit, x, rays)
 
     # 3-6. the main path in both trace configurations
     state, launches, stats = train("train", cfg, batch, gen, dev,

@@ -15,7 +15,9 @@ row:
   as a 0-d device tensor: no host sync and no shape that depends on the
   data, so a CUDA graph can capture it. The block holds every row, so it
   needs no overflow branch; the kernels' count entries compute only the
-  rows below the count. The graph-replayed training step uses it.
+  rows below the count, and ``bounded_rows`` runs a torch function on the
+  tiles of the block that hold active rows, each tile a conditional node
+  of the graph (``run_if``). The graph-replayed training step uses it.
 - ``masked_call_into`` runs ``fn`` on every row with no gather, for
   ``torch.export`` (the static trace).
 """
@@ -103,3 +105,48 @@ def bounded_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
         m = m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
         merged.append(torch.where(m, o[pos].to(t.dtype), t))
     return tuple(merged)
+
+
+def run_if(pred, body) -> None:
+    """``body()`` when the 0-d bool tensor ``pred`` holds. While a CUDA
+    graph is being captured, ``body`` is captured into a conditional node
+    that each replay runs or skips by ``pred``'s value on the device (no
+    host read; ``tracing/kernels/graph_cond``, inside its
+    ``ConditionalBodies``); otherwise ``pred`` is read on the host.
+    ``body`` writes its results into tensors made before the call: what it
+    allocates is not there after a replay that skipped it."""
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        from .tracing.kernels.graph_cond import if_node
+        with if_node(pred):
+            body()
+    elif bool(pred):
+        body()
+
+
+# rows a tile of ``bounded_rows`` holds at least, and tiles a block at most
+TILE_ROWS = 1 << 12
+MAX_TILES = 64
+
+
+def tile_rows(n: int) -> int:
+    """The tile of a block of ``n`` rows: at least TILE_ROWS rows, at most
+    MAX_TILES tiles."""
+    return max(TILE_ROWS, -(-n // MAX_TILES))
+
+
+def bounded_rows(fn, x, count, out, tile: Optional[int] = None):
+    """``out[s:e] = fn(x[s:e], n)`` for each tile [s, e) of the rows of
+    ``x`` that starts below ``count`` (a 0-d int tensor), ``n`` being the
+    tile's rows below the count; the other tiles of ``out`` keep what they
+    hold. No host read under CUDA-graph capture (``run_if``), so the work
+    follows the count to within a tile. ``fn`` must treat rows
+    independently. Returns ``out``."""
+    m = x.shape[0]
+    tile = tile or tile_rows(m)
+    for s in range(0, m, tile):
+        e = min(s + tile, m)
+
+        def body(s=s, e=e):
+            out[s:e] = fn(x[s:e], (count - s).clamp(0, e - s))
+        run_if(count > s, body)
+    return out

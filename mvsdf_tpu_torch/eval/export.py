@@ -9,7 +9,7 @@ port's state dict, through ``torch.func.functional_call``), so one artifact
 serves every checkpoint of the same architecture.
 
 The export captures the plain field and the static formulation of the
-trace (``trace_rays(static=True)``: fixed iteration counts, masks instead
+trace (``trace_rays(mode=STATIC)``: fixed iteration counts, masks instead
 of gathers), with the shading normals from the hand-derived value +
 gradient: ``torch.export`` can capture neither the live trace's host-synced
 loops and gathers nor ``torch.autograd.grad``. As in the JAX package, which
@@ -50,10 +50,11 @@ class _RenderModule(nn.Module):
 
     def forward(self, uv, intrinsics, pose, object_mask):
         from ..rendering.renderer import render_forward
+        from ..tracing.sphere_trace import STATIC
         inputs = {"uv": uv, "intrinsics": intrinsics, "pose": pose,
                   "object_mask": object_mask}
         return render_forward(self.model, self.net, inputs, training=False,
-                              static=True).rgb_values
+                              mode=STATIC).rgb_values
 
 
 def make_render_fn(cfg):

@@ -27,14 +27,14 @@ and the depth-surface groups (B, P_glob // 2) by ``shard_bounds`` on axis
 together are the single-process pass's, and so are replayed noise dicts,
 which hold the global draws.
 
-``static=True`` (eval mode) traces with no data-dependent control flow
-(``trace_rays(static=True)``) and takes the shading normals from the
+``mode=STATIC`` (eval mode) traces with no data-dependent control flow
+(``trace_rays(mode=STATIC)``) and takes the shading normals from the
 hand-derived value + gradient instead of autograd, so the pass can be
 captured by ``torch.export`` (``eval/export.py``).
 
-``bounded=True`` is the pass a CUDA graph captures (the graph-replayed
+``mode=BOUNDED`` is the pass a CUDA graph captures (the graph-replayed
 training step, ``train/step.CapturableStep``): the trace's bounded
-formulation (``trace_rays(bounded=True)``), its SDF evaluations and secant
+formulation (``trace_rays(mode=BOUNDED)``), its SDF evaluations and secant
 through the kernels' count entries, and the supervised path and the
 shading dense, whatever ``supervised_compact_frac`` says: the JAX
 package's compact branch needs a dense overflow branch, which a graph
@@ -48,7 +48,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..compaction import compact_call_into
+from ..compaction import bounded_rows, compact_call_into
 from ..config import Gates, ModelConfig
 from ..fields.embedder import positional_encoding
 from ..fields.network import MVSDFNetwork
@@ -63,7 +63,8 @@ from ..tracing.kernels.sdf_mlp import (pack_sdf_weights, sdf_mlp,
                                        sdf_mlp_count, sdf_mlp_xyz,
                                        sdf_mlp_xyz_count)
 from ..tracing.kernels.secant_kernel import secant, secant_count
-from ..tracing.sphere_trace import TraceResult, trace_rays
+from ..tracing.sphere_trace import (BOUNDED, GATHERED, STATIC, TraceResult,
+                                    trace_rays)
 from .implicit_diff import differentiable_surface_points
 
 
@@ -142,7 +143,7 @@ def _dsurf_samples(cfg: ModelConfig, inputs, n_dsurf, generator, noise):
 
 def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                   object_mask, training, min_steps,
-                  static: bool = False, bounded: bool = False) -> TraceResult:
+                  mode: str = GATHERED) -> TraceResult:
     """The no-grad trace on the current parameters. With
     cfg.use_pallas_trace, its SDF evaluations go through the fused SDF-MLP
     kernel (with the positional encoding in the kernel when
@@ -151,12 +152,14 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
     kernels; all of them share one packing of the weights. Without
     use_pallas_trace those three flags are not read, as in the JAX
     package. TracerConfig.sample_chunk has no effect on either path.
-    ``bounded`` traces in the formulation a CUDA graph captures, the SDF
-    evaluations and the secant through the kernels' count entries (with
-    the positional encoding of the kernel-1 path computed in torch on the
-    whole block: no torch op stops at a count held on the device)."""
+    BOUNDED traces in the formulation a CUDA graph captures, the SDF
+    evaluations and the secant through the kernels' count entries; the
+    torch work of a block (the plain field, the positional encoding before
+    the SDF-MLP kernel) runs on its tiles below the count
+    (``compaction.bounded_rows``: conditional nodes of the graph)."""
     tcfg = cfg.tracer
     march_fn = secant_fn = None
+    bounded = mode == BOUNDED
     with torch.no_grad():
         if cfg.use_pallas_trace:
             packed = pack_sdf_weights(net.implicit)
@@ -166,8 +169,10 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                     return sdf_mlp_xyz_count(packed, multires, x, count)
             elif bounded:
                 def sdf_fn(x, count):
-                    return sdf_mlp_count(
-                        packed, positional_encoding(x, multires), count)
+                    pe = bounded_rows(
+                        lambda a, c: positional_encoding(a, multires), x,
+                        count, x.new_empty((x.shape[0], packed.d_pe)))
+                    return sdf_mlp_count(packed, pe, count)
             elif cfg.pallas_in_kernel_pe:
                 def sdf_fn(x):
                     return sdf_mlp_xyz(packed, multires, x.reshape(-1, 3)
@@ -190,31 +195,33 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
                     return secant(packed, multires, tcfg.n_secant_steps, o,
                                   d, z_lo, z_hi, s_lo, s_hi)
         elif bounded:
-            # the plain field computes every row of the block
             def sdf_fn(x, count):
-                return sdf_apply(net.implicit, x)
+                return bounded_rows(lambda a, c: sdf_apply(net.implicit, a),
+                                    x, count, x.new_zeros(x.shape[0]))
         else:
             def sdf_fn(x):
                 return sdf_apply(net.implicit, x)
         return trace_rays(tcfg, sdf_fn, org, dirs, object_mask,
                           training=training, minimal_steps=min_steps,
                           march_fn=march_fn, secant_fn=secant_fn,
-                          static=static, bounded=bounded)
+                          mode=mode)
 
 
 def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                    training: bool, gates: Gates = Gates(),
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[dict] = None,
-                   static: bool = False, bounded: bool = False) -> RenderOut:
+                   mode: str = GATHERED) -> RenderOut:
     """One renderer forward pass over a batch of pixel rays.
 
     inputs: uv (B, P, 2), intrinsics (B, 4, 4), pose (B, 4, 4) | (B, 7),
     object_mask (B, P); plus depths / depth_cams / center / size when the
     dsurf groups are gated on. Training mode needs ``generator`` or a
-    ``noise`` dict holding every draw it makes. ``static`` (eval mode
-    only) gives the export's formulation, ``bounded`` the one a CUDA graph
-    captures (module docstring)."""
+    ``noise`` dict holding every draw it makes. ``mode`` is the trace's
+    (``sphere_trace.MODES``): STATIC (eval mode only) gives the export's
+    formulation, BOUNDED the one a CUDA graph captures (module
+    docstring)."""
+    static = mode == STATIC
     if static and training:
         raise ValueError("the static formulation is eval mode only")
     tcfg = cfg.tracer
@@ -244,8 +251,8 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
     else:
         min_steps = None
     tr = _frozen_trace(cfg, net, org.detach(), ray_dirs.detach(),
-                       object_mask, training, min_steps, static, bounded)
-    compact = bool(cfg.supervised_compact_frac) and not bounded
+                       object_mask, training, min_steps, mode)
+    compact = bool(cfg.supervised_compact_frac) and mode != BOUNDED
     dists = tr.dists.detach()
     net_obj_mask = tr.network_object_mask
     points = org + dists[..., None] * ray_dirs

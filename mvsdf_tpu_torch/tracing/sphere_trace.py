@@ -15,7 +15,7 @@ active; each ``.any()`` test costs one host sync per iteration. The fused
 march and secant kernels (``trace_rays(march_fn=, secant_fn=)``) run those
 loops on the device instead.
 
-``trace_rays(static=True)`` is the JAX formulation itself, for
+``trace_rays(mode=STATIC)`` is the JAX formulation itself, for
 ``torch.export`` (the serving export): every lane runs the fixed iteration
 counts with converged lanes frozen by the same masks, each SDF evaluation
 and each fallback stage runs on every ray and keeps its result where the
@@ -23,7 +23,7 @@ mask says (``compaction.masked_call_into``), and nothing gathers or tests
 a mask on the host. It reuses the stages below, so a ray's result is the
 gathered path's.
 
-``trace_rays(bounded=True)`` is the formulation a CUDA graph captures (the
+``trace_rays(mode=BOUNDED)`` is the formulation a CUDA graph captures (the
 graph-replayed training step): the same fixed iteration counts and
 masks, but each SDF evaluation, each fallback stage and the secant run on
 a block ordered on the device with the active rows first
@@ -51,6 +51,12 @@ import torch
 
 from ..compaction import (bounded_call_into, compact_call_into,
                           masked_call_into)
+
+# The trace's formulations (module docstring): the gathered one (host-read
+# masks, exact gathers), the static one for torch.export, the bounded one
+# a CUDA graph captures.
+GATHERED, STATIC, BOUNDED = "gathered", "static", "bounded"
+MODES = (GATHERED, STATIC, BOUNDED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,15 +112,14 @@ def _mask_update(unfin2, next2, thr):
     return unfin2 & (curr2 > thr), curr2
 
 
-def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False,
-                bounded=False):
+def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, mode=GATHERED):
     """``base`` with lanes ``sel`` replaced by clip(sdf(org + t dirs));
-    ``static`` evaluates every lane, ``bounded`` the block of
-    ``bounded_call_into`` (``sdf_fn(points, count)``)."""
-    if static:
+    STATIC evaluates every lane, BOUNDED the block of ``bounded_call_into``
+    (``sdf_fn(points, count)``)."""
+    if mode == STATIC:
         val = sdf_fn(org2 + t2[..., None] * dirs2).clamp(-clip, clip)
         return torch.where(sel, val, base)
-    if bounded:
+    if mode == BOUNDED:
         pts = (org2 + t2[..., None] * dirs2).reshape(-1, 3)
         (out,) = bounded_call_into(
             lambda c, p: (sdf_fn(p, c).clamp(-clip, clip),), sel.reshape(-1),
@@ -128,18 +133,17 @@ def _eval_where(sdf_fn, org2, dirs2, t2, sel, clip, base, static=False,
 
 
 def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
-                 i0: int, i1: int, init: bool, static: bool = False,
-                 bounded: bool = False):
+                 i0: int, i1: int, init: bool, mode: str = GATHERED):
     """Bidirectional march iterations [i0, i1) on flat (N,)-ray state.
 
     org, dirs (N, 3); unfin2, t2, next2 (2, N): start and end march states
     stacked on axis 0. ``init`` also computes the pre-loop evaluation at the
     seeded t values. Inactive lanes keep their t and a next value of 0, so
-    the iterations that ``static`` and ``bounded`` run past the last active
-    lane change nothing."""
+    the iterations that STATIC and BOUNDED run past the last active lane
+    change nothing."""
     thr = cfg.sdf_threshold
     clip = cfg.dist_clip
-    fixed = static or bounded
+    fixed = mode != GATHERED
     org2 = org.expand(2, *org.shape)
     dirs2 = dirs.expand(2, *dirs.shape)
     # [[1], [-1]], made on the device (a graph captures no host copy)
@@ -149,14 +153,14 @@ def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
 
     if init:
         next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
-                            static, bounded)
+                            mode)
 
     i = i0
     while i < i1 and (fixed or bool(unfin2.any())):
         unfin2, curr2 = _mask_update(unfin2, next2, thr)
         t2 = t2 + sign2 * curr2
         next2 = _eval_where(sdf_fn, org2, dirs2, t2, unfin2, clip, zeros,
-                            static, bounded)
+                            mode)
         # line search halving the overshoot: the start march steps t down,
         # the end march steps t up
         not_proj = next2 < 0
@@ -165,7 +169,7 @@ def _march_iters(cfg: TracerConfig, sdf_fn, org, dirs, unfin2, t2, next2,
             step = ((1 - cfg.line_search_step) / (2.0 ** j)) * curr2
             t2 = torch.where(not_proj, t2 - sign2 * step, t2)
             next2 = _eval_where(sdf_fn, org2, dirs2, t2, not_proj, clip,
-                                next2, static, bounded)
+                                next2, mode)
             not_proj = next2 < 0
             j += 1
         unfin2 = unfin2 & (t2[0] < t2[1])[None]
@@ -190,13 +194,12 @@ def _segments(cfg: TracerConfig):
 
 
 def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
-                  t_near, t_far, static: bool = False,
-                  bounded: bool = False):
+                  t_near, t_far, mode: str = GATHERED):
     """Bidirectional sphere tracing. org, dirs (L..., 3); mask_intersect,
     t_near, t_far (L...). Returns (unfinished_start, t_start, t_end).
-    ``static`` and ``bounded`` march every lane through all iterations,
-    with no segment gathers (``bounded`` evaluates each step's active
-    lanes on a device-ordered block)."""
+    STATIC and BOUNDED march every lane through all iterations, with no
+    segment gathers (BOUNDED evaluates each step's active lanes on a
+    device-ordered block)."""
     lead = mask_intersect.shape
     R = mask_intersect.numel()
     orgf = org.reshape(R, 3)
@@ -210,14 +213,14 @@ def _sphere_trace(cfg: TracerConfig, sdf_fn, org, dirs, mask_intersect,
                                  device=t_near.device))
     next2 = torch.zeros_like(t2)
 
-    segments = [(0, cfg.sphere_tracing_iters, False)] if static or \
-        bounded else _segments(cfg)
+    segments = [(0, cfg.sphere_tracing_iters, False)] if mode != GATHERED \
+        else _segments(cfg)
     for i0, i1, compact in segments:
         init = i0 == 0
         if not compact:
             unfin2, t2, next2 = _march_iters(cfg, sdf_fn, orgf, dirsf,
                                              unfin2, t2, next2, i0, i1, init,
-                                             static, bounded)
+                                             mode)
             continue
         active = mi if init else (unfin2[0] | unfin2[1])
 
@@ -248,14 +251,14 @@ def _sample_points(org, dirs, t_lo, t_hi, steps):
 
 def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
                    pts, sdf_val, training: bool, secant_fn=None,
-                   static: bool = False, bounded=None):
+                   mode: str = GATHERED, block=None):
     """Sampler post-processing on flat (N,) rays with samples (N, S): first
     sign crossing, min-SDF fallback, secant (``secant_fn`` when given, on
-    the rays it refines only; ``static``: on every ray, kept on those).
-    ``bounded`` is (count-taking sdf_fn, live rows (N,) bool) inside a
-    ``bounded_call_into`` block: the secant then runs on a block of its
-    own, its rays first, and ``secant_fn`` takes their count.
-    Returns (points, net_surface, dists)."""
+    the rays it refines only; STATIC: on every ray, kept on those). In
+    BOUNDED mode the rays are a ``bounded_call_into`` block and ``block``
+    is (its count-taking sdf_fn, its live rows (N,) bool): the secant then
+    runs on a block of its own, its rays first, and ``secant_fn`` takes
+    their count. Returns (points, net_surface, dists)."""
     S = cfg.n_steps
     weight = torch.arange(S, 0, -1, dtype=sdf_val.dtype,
                           device=sdf_val.device)
@@ -269,8 +272,8 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
     p = _take(pts, pick)
 
     secant_sel = (net_surface & object_mask) if training else net_surface
-    if bounded is not None:
-        count_sdf, live = bounded
+    if mode == BOUNDED:
+        count_sdf, live = block
         s = secant_sel & live
         z_high, sdf_high = _take(ts, ind), _take(sdf_val, ind)
         ind_lo = (ind - 1) % S
@@ -284,6 +287,7 @@ def _sampler_logic(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, ts,
         (d,) = bounded_call_into(fn, s, args, [d])
         p = torch.where(s[:, None], org + d[:, None] * dirs, p)
         return p, net_surface, d
+    static = mode == STATIC
     if static or bool(secant_sel.any()):
         z_high = _take(ts, ind)
         sdf_high = _take(sdf_val, ind)
@@ -340,13 +344,13 @@ def _linspace(cfg: TracerConfig, like):
 
 
 def _ray_sampler(cfg: TracerConfig, sdf_fn, org, dirs, object_mask, t_min,
-                 t_max, training: bool, secant_fn=None, static=False,
-                 bounded=None):
+                 t_max, training: bool, secant_fn=None, mode=GATHERED,
+                 block=None):
     """Uniform interval sampling + secant on flat (N,) rays."""
     ts, pts = _sample_points(org, dirs, t_min, t_max, _linspace(cfg, t_min))
     sdf_val = sdf_fn(pts)
     return _sampler_logic(cfg, sdf_fn, org, dirs, object_mask, ts, pts,
-                          sdf_val, training, secant_fn, static, bounded)
+                          sdf_val, training, secant_fn, mode, block)
 
 
 def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
@@ -360,7 +364,7 @@ def _minimal_sdf_points(cfg: TracerConfig, sdf_fn, org, dirs, t_min, t_max,
 
 def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                       is_smp, t_lo, t_hi, steps01, training: bool,
-                      secant_fn=None, static: bool = False, bounded=None):
+                      secant_fn=None, mode: str = GATHERED, block=None):
     """One n_steps-sample evaluation serving both fallback stages: sampler
     rows (is_smp) use the uniform linspace, fill rows the stratified
     steps01. Returns (points, net_surface, dists) on flat (N,) rays."""
@@ -370,7 +374,7 @@ def _unified_fallback(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     sdf_val = sdf_fn(pts)
     smp_p, smp_net, smp_d = _sampler_logic(
         cfg, sdf_fn, org, dirs, object_mask, ts, pts, sdf_val, training,
-        secant_fn, static, bounded)
+        secant_fn, mode, block)
     idx = torch.argmin(sdf_val, dim=-1)
     mn_p, mn_d = _take(pts, idx), _take(ts, idx)
     p = torch.where(is_smp[:, None], smp_p, mn_p)
@@ -402,7 +406,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                training: bool, generator: Optional[torch.Generator] = None,
                minimal_steps: Optional[torch.Tensor] = None,
                march_fn=None, secant_fn=None,
-               static: bool = False, bounded: bool = False) -> TraceResult:
+               mode: str = GATHERED) -> TraceResult:
     """Full tracing pipeline. org, dirs (L..., 3); object_mask (L...) bool.
     ``sdf_fn`` maps points (..., 3) to SDF values (...). ``minimal_steps``
     (n_steps,) in [0, 1) fixes the stratified fill samples; otherwise they
@@ -412,26 +416,27 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     t_e)`` replaces the march (``_sphere_trace``; the march compaction
     schedule then does not apply), and ``secant_fn(org, dirs, z_low,
     z_high, sdf_low, sdf_high) -> z_pred`` the secant, on (N,) rays: the
-    fused kernels take these places. ``static`` gives the formulation with
-    no data-dependent control flow or shape (module docstring), and
-    ``bounded`` the one a CUDA graph captures: there ``sdf_fn(points (M,
-    3), count)`` need only compute the first ``count`` rows (a 0-d int32 on
-    the device) and ``secant_fn`` takes that count as a last argument."""
-    if static and bounded:
-        raise ValueError("trace_rays takes static or bounded, not both")
+    fused kernels take these places. ``mode`` is one of MODES: STATIC
+    gives the formulation with no data-dependent control flow or shape
+    (module docstring), BOUNDED the one a CUDA graph captures: there
+    ``sdf_fn(points (M, 3), count)`` need only compute the first ``count``
+    rows (a 0-d int32 on the device) and ``secant_fn`` takes that count as
+    a last argument."""
+    if mode not in MODES:
+        raise ValueError(f"trace_rays takes a mode of {MODES}, not {mode!r}")
     lead = org.shape[:-1]
     R = org[..., 0].numel()
     mask_intersect, t_near, t_far = sphere_intersection(
         org, dirs, cfg.object_bounding_sphere)
     zero = torch.zeros_like(t_near)
 
-    if static:
+    if mode == STATIC:
         call_into = masked_call_into
-    elif bounded:
+    elif mode == BOUNDED:
         def call_into(fn, mask, inputs, targets, out_masks=None):
             # fn runs on the device-ordered block: its SDF evaluations
             # compute the rows of the first `count` rays alone
-            def block(c, *a):
+            def run_block(c, *a):
                 n = a[0].shape[0]
                 live = torch.arange(n, device=a[0].device) < c
 
@@ -439,14 +444,15 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
                     per = x[..., 0].numel() // max(n, 1)
                     return sdf_fn(x.reshape(-1, 3), c * per).reshape(
                         x.shape[:-1])
-                return fn(*a, sdf=rows_sdf, bounded=(sdf_fn, live))
-            return bounded_call_into(block, mask, inputs, targets, out_masks)
+                return fn(*a, sdf=rows_sdf, block=(sdf_fn, live))
+            return bounded_call_into(run_block, mask, inputs, targets,
+                                     out_masks)
     else:
         call_into = compact_call_into
     if march_fn is None:
         unfin_s, t_s, t_e = _sphere_trace(cfg, sdf_fn, org, dirs,
                                           mask_intersect, t_near, t_far,
-                                          static, bounded)
+                                          mode)
     else:
         unfin_s, t_s, t_e = march_fn(org, dirs, mask_intersect, t_near,
                                      t_far)
@@ -485,9 +491,9 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
         active = sampler_mask | fill
         t_lo = torch.where(sampler_mask, t_s, min_dis)
         t_hi = torch.where(sampler_mask, t_e, max_dis)
-        fn = lambda o, d, m, sm, lo, hi, sdf=sdf_fn, bounded=None: \
+        fn = lambda o, d, m, sm, lo, hi, sdf=sdf_fn, block=None: \
             _unified_fallback(cfg, sdf, o, d, m, sm, lo, hi, steps01,
-                              training, secant_fn, static, bounded)
+                              training, secant_fn, mode, block)
         p_f, net_f, d_f = call_into(
             fn, flat(active),
             [flat(org), flat(dirs), flat(object_mask), flat(sampler_mask),
@@ -505,8 +511,8 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
 
     smp_t_min = torch.where(sampler_mask, t_s, zero)
     smp_t_max = torch.where(sampler_mask, t_e, zero)
-    fn = lambda o, d, m, lo, hi, sdf=sdf_fn, bounded=None: _ray_sampler(
-        cfg, sdf, o, d, m, lo, hi, training, secant_fn, static, bounded)
+    fn = lambda o, d, m, lo, hi, sdf=sdf_fn, block=None: _ray_sampler(
+        cfg, sdf, o, d, m, lo, hi, training, secant_fn, mode, block)
     smpf = flat(sampler_mask)
     p_f, net_f, d_f = call_into(
         fn, smpf, [flat(org), flat(dirs), flat(object_mask),
@@ -533,7 +539,7 @@ def trace_rays(cfg: TracerConfig, sdf_fn, org, dirs, object_mask,
     fill = (in_mask | out_mask) & mask_intersect
     min_dis = torch.where(net_obj_mask & out_mask, dists, min_dis)
     steps01 = draw_steps()
-    fn = lambda o, d, lo, hi, sdf=sdf_fn, bounded=None: _minimal_sdf_points(
+    fn = lambda o, d, lo, hi, sdf=sdf_fn, block=None: _minimal_sdf_points(
         cfg, sdf, o, d, lo, hi, steps01)
     fillf = flat(fill)
     p_f, d_f = call_into(

@@ -28,7 +28,8 @@ Two paths, as in the JAX package:
   copied into the graph's static input on the device. No replay waits on
   the host. Each replay's metrics go into the chunk's buffer, read one
   chunk behind (after the next chunk is queued); each epoch logs its last
-  step, and ``rays_per_s`` and ``ms_per_step`` are the chunk's. A chunk
+  step, and ``rays_per_s`` and ``ms_per_step`` are the chunk's. A phase's
+  graph is dropped when the next phase's is made. A chunk
   closes at save epochs, phase changes, the ``profile_epochs`` cut and
   ``epochs_per_dispatch``; checkpoints, snapshots and full renders run
   between chunks. A torch graph holds one step, so a short chunk replays
@@ -38,7 +39,10 @@ Two paths, as in the JAX package:
   parallel runs: the host drives every step, and metrics are read once an
   epoch (the last step's).
 The two paths take the same batches and draws, and their checkpoints are
-interchangeable.
+interchangeable. Both time their steps on one clock (``_StepClock``: CUDA
+events on a GPU, the host clock on the CPU): ``ms_per_step`` leaves out
+an epoch's first step (per-epoch) or the phase's capture (fused), and
+``rays_per_s`` is a step's rays over it.
 
 Data parallel (``parallel/``, one process a GPU): every rank loads the
 scene, draws the same host plan and the same per-step noise, and trains
@@ -67,8 +71,33 @@ from ..parallel import barrier, rank, validate_ray_divisibility, world_size
 from . import checkpoints as ckpt
 from .device_data import DeviceSceneCache
 from .metrics import MetricsLogger, Throughput, annotate, profile_trace
-from .step import (METRIC_KEYS, CapturableStep, adam_scalars, advance_epoch, init_train_state, make_train_step,
-                   milestones)
+from .step import (METRIC_KEYS, CapturableStep, adam_scalars, advance_epoch,
+                   init_train_state, make_train_step, milestones)
+
+
+class _StepClock:
+    """Two marks and the milliseconds between them: CUDA events (the
+    device's timeline, read after a later sync) on a GPU, the host clock on
+    the CPU. Both training paths time their steps with it."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> float:
+        """From the first mark to the last (0 with fewer than two)."""
+        if len(self.marks) < 2:
+            return 0.0
+        a, b = self.marks[0], self.marks[-1]
+        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
 
 
 class Trainer:
@@ -91,7 +120,7 @@ class Trainer:
         self.log = log_fn if self.main else (lambda *_: None)
         self.device = resolve_device(device)
         self.steps = {}        # phase_idx -> train step
-        self.fused_steps = {}  # phase_idx -> CapturableStep
+        self.fused_steps = {}  # phase_idx -> CapturableStep (this phase's)
         # the linear-method camera initialisation where the scene has one,
         # the ground-truth poses otherwise (ref idr_train.py:121-127)
         self.state = init_train_state(
@@ -150,7 +179,7 @@ class Trainer:
                              f"seed")
         self._follow_schedule()
         # graphs hold the replaced state tensors' addresses
-        self.fused_steps.clear()
+        self._release_fused_steps()
         self._sync()
         self.timings["restore_ms"].append((time.perf_counter() - t0) * 1e3)
         self.start_epoch = epoch + 1
@@ -190,8 +219,10 @@ class Trainer:
         sel_d = torch.from_numpy(sel.astype(np.int64)).to(dev)
         order = self.rng.permutation(self.scene.n_images)
 
-        t0 = time.perf_counter()
-        t_first = None
+        # ms_per_step: the steps after the first (which pays for first
+        # calls), on the device's clock (CUDA events) as the fused path's,
+        # on the host's on the CPU
+        clock = _StepClock(dev)
         n_steps = 0
         metrics = None
         with annotate(f"epoch[{epoch}]"):
@@ -201,17 +232,15 @@ class Trainer:
                 metrics = step(self.state, batch, w, self.generator)
                 n_steps += 1
                 if n_steps == 1:
-                    t_first = time.perf_counter()
+                    clock.mark()
+        clock.mark()
         advance_epoch(self.state)
         m = {k: float(v) for k, v in metrics.items()}   # the epoch's sync
-        t1 = time.perf_counter()
         n_rays = n_steps * B * len(sel)
         self.throughput.add(n_rays)
-        # the steps after the first (which pays for first calls)
-        ms_step = ((t1 - t_first) / (n_steps - 1) if n_steps > 1
-                   else t1 - t0) * 1e3
-        self._log_epoch(epoch, n_rays / (t1 - t0), m, phase=phase_idx,
-                        steps=n_steps, ms_per_step=ms_step)
+        ms_step = max(clock.ms() / max(n_steps - 1, 1), 1e-6)
+        self._log_epoch(epoch, B * len(sel) / ms_step * 1e3, m,
+                        phase=phase_idx, steps=n_steps, ms_per_step=ms_step)
         return m
 
     # ------------------------------------------------------------------
@@ -240,9 +269,17 @@ class Trainer:
         return max(1, min(self.cfg.train.epochs_per_dispatch,
                           self.plot_freq + 1))
 
+    def _release_fused_steps(self):
+        for step in self.fused_steps.values():
+            step.release()
+        self.fused_steps.clear()
+
     def _get_fused_step(self, phase_idx: int, weights) -> CapturableStep:
         step = self.fused_steps.get(phase_idx)
         if step is None:
+            # phases never come back: the earlier phases' graphs, and the
+            # pools they hold, go before this one is captured
+            self._release_fused_steps()
             step = CapturableStep(self.cfg, phase_idx, weights, self.state,
                                   self.cache, self.generator)
             self.fused_steps[phase_idx] = step
@@ -313,9 +350,10 @@ class Trainer:
         pinned host memory behind them. Nothing here waits on the device
         once the step is captured. Returns the chunk's record for
         ``_flush_metrics``: its epochs, metrics buffer, the event after its
-        copy, CUDA events around its replays, the host seconds of this
-        call, the capture's seconds (or None) and the pinned plan, which
-        must live until its copy has run."""
+        copy, a ``_StepClock`` marked around its replays (its eager steps on
+        the CPU), the host seconds of this call, the capture's seconds (or
+        None) and the pinned plan, which must live until its copy has
+        run."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         plan = torch.from_numpy(plan_np)
@@ -325,7 +363,7 @@ class Trainer:
         out = torch.empty((len(epochs), len(METRIC_KEYS)),
                           dtype=torch.float32, device=self.device)
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
-                 "replays": 0, "done": None, "events": None}
+                 "replays": 0, "done": None, "clock": _StepClock(self.device)}
         with contextlib.ExitStack() as spans:
             for k in range(len(epochs)):
                 if k == 0 or epochs[k] != epochs[k - 1]:
@@ -336,16 +374,14 @@ class Trainer:
                     step.capture()   # step k is the warm-up
                     chunk["capture_s"] = step.capture_s
                 else:
-                    if cuda and chunk["events"] is None:
-                        chunk["events"] = [torch.cuda.Event(
-                            enable_timing=True) for _ in range(2)]
-                        chunk["events"][0].record()
+                    if chunk["replays"] == 0:
+                        chunk["clock"].mark()
                     step()
                     chunk["replays"] += 1
                 out[k].copy_(step.metrics)
+        if chunk["replays"]:
+            chunk["clock"].mark()
         if cuda:
-            if chunk["events"] is not None:
-                chunk["events"][1].record()
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             chunk["done"] = torch.cuda.Event()
@@ -358,10 +394,12 @@ class Trainer:
     def _flush_metrics(self):
         """Read and log the pending chunk's metrics. The read waits on the
         chunk's own event, not on the work queued after it, so the device
-        stays busy with the next chunk. ``ms_per_step`` is the device time
-        of the chunk's replays over their count (CUDA events); for a chunk
-        with none (the CPU, or a phase's first chunk of one step: the
-        warm-up), the host time of its dispatch less the capture's."""
+        stays busy with the next chunk. ``ms_per_step`` is the time of the
+        chunk's replays over their count, on the clock ``train_epoch``
+        reads (``_StepClock``); for a chunk with none (a phase's first
+        chunk of one step: the warm-up), the host time of its dispatch less
+        the capture's. ``rays_per_s`` is a step's rays over it, as in
+        ``train_epoch``."""
         chunk, self._pending = self._pending, None
         if chunk is None:
             return
@@ -369,9 +407,8 @@ class Trainer:
             chunk["done"].synchronize()
         m_np = chunk["out"].numpy()
         epochs = chunk["epochs"]
-        if chunk["events"] is not None:
-            e0, e1 = chunk["events"]
-            ms_step = e0.elapsed_time(e1) / chunk["replays"]
+        if chunk["replays"]:
+            ms_step = chunk["clock"].ms() / chunk["replays"]
         else:
             ms_step = (chunk["host_s"] - (chunk["capture_s"] or 0.0)) / \
                 len(epochs) * 1e3
@@ -504,6 +541,10 @@ class Trainer:
         self._flush_metrics()
         self.save(cfg.train.nepochs)
         rates = self.throughput.rates()
+        peak = ""
+        if self.device.type == "cuda":
+            gib = torch.cuda.max_memory_allocated(self.device) / 2 ** 30
+            peak = f", peak memory {gib:.2f} GiB"
         self.log(f"training done: {rates['rays_per_s']:.0f} rays/s "
-                 f"({rates['steps_per_s']:.2f} epochs/s overall)")
+                 f"({rates['steps_per_s']:.2f} epochs/s overall){peak}")
         return self.state

@@ -40,6 +40,7 @@ from ..parallel import sum_, world_size
 from ..rendering.renderer import render_forward
 from ..supervision.losses import LossTerms, total_loss
 from ..tracing.kernels import counts
+from ..tracing.sphere_trace import BOUNDED, GATHERED
 from .cameras_opt import (SparseAdamState, init_sparse_adam,
                           pose_vecs_from_matrices, sparse_adam_step)
 
@@ -118,7 +119,7 @@ def _clip_by_global_norm(grads, cap: float):
 
 def _gradients(cfg: MVSDFConfig, gates, state: TrainState,
                batch: Dict[str, torch.Tensor], weights: Weights, generator,
-               noise, bounded: bool = False):
+               noise, mode: str = GATHERED):
     """The step up to the optimizers: forward, loss, gradients, the
     all-reduce, the clip and the non-finite skip. Returns (loss term names,
     field parameters, their gradients, the pose gradients or None, the
@@ -133,7 +134,7 @@ def _gradients(cfg: MVSDFConfig, gates, state: TrainState,
         inputs = dict(batch, pose=pose_vecs[batch["indices"]])
         params.append(pose_vecs)
     out = render_forward(cfg.model, net, inputs, training=True, gates=gates,
-                         generator=generator, noise=noise, bounded=bounded)
+                         generator=generator, noise=noise, mode=mode)
     lt = total_loss(out, {k: batch[k] for k in GT_KEYS}, gates,
                     cfg.schedule, weights)
     grads = torch.autograd.grad(lt.loss, params, allow_unused=True)
@@ -264,7 +265,7 @@ class CapturableStep:
     batch's B image indices, the P pixel ids, and the ADAM_SCALARS f32 bit
     patterns of ``adam_scalars``. It gathers the batch from the device
     scene cache itself, renders in the bounded formulation
-    (``render_forward(bounded=True)``: the trace through the kernels'
+    (``render_forward(mode=BOUNDED)``: the trace through the kernels'
     count entries, the supervised path dense), and updates the parameters,
     Adam's moments and, with cameras, the poses and their SparseAdam state
     in place. It writes the metrics (METRIC_KEYS) into ``self.metrics``.
@@ -310,6 +311,7 @@ class CapturableStep:
             raise ValueError("the capturable step is Adam without weight "
                              "decay, amsgrad or maximize")
         self.graph = None
+        self.bodies = None
         self.launches = {}
         self.capture_s = None
         self.graph_bytes = None
@@ -331,7 +333,7 @@ class CapturableStep:
         batch = self.cache.gather(indices, sel)
         _, params, grads, pose_grads, shares, gnorm = _gradients(
             self.cfg, self.gates, self.state, batch, self.weights,
-            self.generator, None, bounded=True)
+            self.generator, None, mode=BOUNDED)
         with torch.no_grad():
             adam_update(params, grads, self.adam, adam[0], adam[1],
                         self.betas, self.eps)
@@ -364,7 +366,9 @@ class CapturableStep:
     def capture(self):
         """Run the step of the current row on a side stream (the warm-up: a
         real step), then capture the step into a CUDA graph with the
-        generator registered."""
+        generator registered, its bounded blocks' tiles as conditional
+        nodes (``graph_cond.ConditionalBodies``)."""
+        from ..tracing.kernels.graph_cond import ConditionalBodies
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -380,7 +384,8 @@ class CapturableStep:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
+        self.bodies = ConditionalBodies(dev)
+        with torch.cuda.graph(graph), self.bodies:
             self.eager()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
@@ -389,6 +394,13 @@ class CapturableStep:
         self.launches = counts.since(before)
         counts.add({k: -v for k, v in self.launches.items()})
         self.graph = graph
+
+    def release(self):
+        """Drop the graph and give its memory back."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+            self.bodies.release()
 
     def __call__(self):
         """One step from ``self.row``: a replay when captured, else eager."""

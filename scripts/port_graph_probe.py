@@ -11,9 +11,20 @@ Answers the questions the trainer's graph-replayed chunk path rests on:
      each replay taking the branch its predicate says), and whether a
      branch with autograd through it captures;
   4. ctypes: whether the kernels' ctypes launches (sdf_mlp, sdf_mlp_xyz,
-     secant, sphere_march) capture, and replay to the eager results.
+     secant, sphere_march) capture, and replay to the eager results;
+  5. if_node: whether torch has ``CUDAGraph.begin_capture_to_if_node``;
+     whether the port's conditional node (``tracing/kernels/graph_cond``
+     through ``compaction.run_if``) captures and follows its predicate;
+     and ``compaction.bounded_rows``
+     on the training trace's largest block (the fallback's 32,768 rays x
+     100 samples): the plain field's SDF column and, for the SDF-MLP
+     kernel's count entry, the positional encoding. For counts 0, a
+     quarter, a half and all rows: each replay's device ms (CUDA events)
+     and its rows below the count against the eager dense call, beside
+     the dense call's ms; and no synchronizing op in the replays
+     (``set_sync_debug_mode("error")``).
 
-    python3 scripts/port_graph_probe.py [--out f]
+    python3 scripts/port_graph_probe.py [--only if_node,...] [--out f]
 
 Prints one JSON object (and writes it to --out if given). Needs a GPU.
 """
@@ -159,6 +170,103 @@ def probe_cond():
     return out
 
 
+def probe_if_node(state, dev):
+    import torch
+    from mvsdf_tpu_torch.compaction import bounded_rows, run_if, tile_rows
+    from mvsdf_tpu_torch.fields.embedder import positional_encoding
+    from mvsdf_tpu_torch.fields.sdf import sdf_apply
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    out = {"torch_if_node": hasattr(torch.cuda.CUDAGraph,
+                                    "begin_capture_to_if_node"),
+           "stream_pool": hasattr(torch._C,
+                                  "_cuda_beginAllocateCurrentStreamToPool")}
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    res = torch.zeros(8, device=dev)
+
+    def body():
+        res.copy_((x[:, None] * x[None, :]).sum(0))
+
+    g = torch.cuda.CUDAGraph()
+    bodies = ConditionalBodies(dev)
+    try:
+        with torch.cuda.graph(g), bodies:
+            res.zero_()
+            run_if(pred, body)
+    except Exception as exc:  # what refused, reported
+        torch.cuda.synchronize()
+        return dict(out, capture=f"{type(exc).__name__}: "
+                    f"{str(exc).splitlines()[0][:300]}")
+    got = []
+    for p in (False, True, False):
+        pred.fill_(p)
+        g.replay()
+        got.append(res.clone())
+    torch.cuda.synchronize()
+    full = (x[:, None] * x[None, :]).sum(0)
+    out["replay_follows_predicate"] = bool(
+        torch.equal(got[0], torch.zeros_like(x)) and
+        torch.equal(got[1], full) and torch.equal(got[2], got[0]))
+    g.reset()
+    bodies.release()
+
+    net = state.net.implicit
+    L = net.cfg.multires
+    m = 32768 * 100
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pts = torch.rand(m, 3, generator=gen, device=dev) * 2 - 1
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    arms = {"plain_sdf": (lambda a, c: sdf_apply(net, a),
+                          torch.zeros(m, device=dev)),
+            "pe": (lambda a, c: positional_encoding(a, L),
+                   torch.zeros(m, 3 + 6 * L, device=dev))}
+    out["tile_rows"] = tile_rows(m)
+    with torch.no_grad():
+        for name, (fn, buf) in arms.items():
+            dense = fn(pts, None)
+            t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t[0].record()
+            fn(pts, None)
+            t[1].record()
+            torch.cuda.synchronize()
+            rec = {"dense_ms": t[0].elapsed_time(t[1])}
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            g = torch.cuda.CUDAGraph()
+            bodies = ConditionalBodies(dev)
+            with torch.cuda.graph(g), bodies:
+                bounded_rows(fn, pts, count, buf)
+            rec["graph_mib"] = (torch.cuda.memory_reserved(dev) -
+                                reserved) / 2 ** 20
+            for n in (0, m // 4, m // 2, m):
+                count.fill_(n)
+                buf.zero_()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t[0].record()
+                    g.replay()
+                    t[1].record()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                rec[f"count_{n}"] = {
+                    "ms": t[0].elapsed_time(t[1]),
+                    "rows_equal_dense": bool(torch.equal(buf[:n],
+                                                         dense[:n])),
+                    "max_abs_err": float((buf[:n] - dense[:n]).abs().max())
+                    if n else 0.0,
+                    "past_count_untouched": bool(
+                        (buf[-(-n // tile_rows(m)) * tile_rows(m):] == 0
+                         ).all())}
+            out[name] = rec
+            g.reset()
+            bodies.release()
+            del g, dense
+            torch.cuda.empty_cache()
+    return out
+
+
 def probe_kernels(cfg, state, dev):
     import torch
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
@@ -211,7 +319,11 @@ def probe_kernels(cfg, state, dev):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the JSON result here")
+    ap.add_argument("--only", default="generator,cond,kernels,if_node,"
+                    "step_syncs,step_capture",
+                    help="comma-separated probes to run")
     args = ap.parse_args()
+    only = args.only.split(",")
     import torch
     if not torch.cuda.is_available():
         sys.exit("port_graph_probe: needs a CUDA GPU")
@@ -234,13 +346,19 @@ def main():
     step(state, batch, weights, gen)
     res = {"card": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda}
-    res["generator"] = probe_generator()
-    res["cond"] = probe_cond()
-    res["kernels"] = probe_kernels(cfg, state, dev)
-    res["step_syncs"] = step_syncs(step, state, batch, weights, gen)
-    # last: a refused capture may leave the context unusable
-    res["step_capture"] = capture_refusal(
-        lambda: step(state, batch, weights, gen)) or "captured"
+    probes = {
+        "generator": probe_generator,
+        "cond": probe_cond,
+        "kernels": lambda: probe_kernels(cfg, state, dev),
+        "if_node": lambda: probe_if_node(state, dev),
+        "step_syncs": lambda: step_syncs(step, state, batch, weights, gen),
+        # last: a refused capture may leave the context unusable
+        "step_capture": lambda: capture_refusal(
+            lambda: step(state, batch, weights, gen)) or "captured"}
+    for name, probe in probes.items():
+        if name in only:
+            res[name] = probe()
+            print(json.dumps({name: res[name]}), flush=True)
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

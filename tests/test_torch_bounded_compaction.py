@@ -7,15 +7,19 @@
   on the first ``count`` rows and is 0 past them, at count 0, a partial
   count and the full capacity; on CPU tensors the wrappers run them and
   count no launch.
-- ``trace_rays(bounded=True)`` against the JAX package's ``trace_rays`` at
+- ``trace_rays(mode="bounded")`` against the JAX package's ``trace_rays`` at
   1,024 rays (2 images x 512, so the JAX side's tiers survive and its
   compact branches run), training mode, the compaction cascades the
   training CLI sets, at ``tests/test_torch_trace.py``'s tolerance (1e-4
   absolute + relative on dists and points: f32 sums in another order, and
   a secant that divides by an SDF difference); and against the port's own
   gathered trace, to the bit (the same per-row arithmetic on the CPU).
+- ``bounded_rows``: the tiles that start below the count get ``fn``'s
+  rows, each with its rows below the count, and the others keep what they
+  held, at counts on, below and above tile edges.
 - The renderer's bounded pass (its count-entry closures, the fused
-  kernels' flags) against the gathered pass, to the bit.
+  kernels' flags, the plain field; its torch work in one tile and in
+  many) against the gathered pass, to the bit.
 """
 import dataclasses
 
@@ -29,8 +33,9 @@ from mvsdf_tpu.compaction import compact_call_into as j_cci
 from mvsdf_tpu.fields import sdf as j_sdf
 from mvsdf_tpu.tracing.sphere_trace import TracerConfig as JTracer
 from mvsdf_tpu.tracing.sphere_trace import trace_rays as j_trace
+from mvsdf_tpu_torch import compaction
 from mvsdf_tpu_torch.compaction import (bounded_call_into, bounded_order,
-                                        compact_call_into)
+                                        bounded_rows, compact_call_into)
 from mvsdf_tpu_torch.fields.embedder import positional_encoding
 from mvsdf_tpu_torch.fields.sdf import ImplicitConfig, init_implicit
 from mvsdf_tpu_torch.tracing.kernels import counts
@@ -164,7 +169,7 @@ def test_bounded_trace_matches_jax_and_the_gathered_trace(setup, case):
     args = (torch.from_numpy(org), torch.from_numpy(dirs),
             torch.from_numpy(mask))
     got = t_trace(tt, bounded, *args, training=training,
-                  minimal_steps=torch.from_numpy(steps), bounded=True)
+                  minimal_steps=torch.from_numpy(steps), mode="bounded")
     ref = t_trace(tt, gathered, *args, training=training,
                   minimal_steps=torch.from_numpy(steps))
     for name in got._fields:
@@ -180,35 +185,62 @@ def test_bounded_trace_matches_jax_and_the_gathered_trace(setup, case):
 
 
 def test_static_and_bounded_are_exclusive(setup):
+    """A trace takes one mode: anything but MODES raises."""
     _, _, net, org, dirs, mask, steps = setup
     _, bounded = _sdf_fns(net)
-    with pytest.raises(ValueError, match="not both"):
+    with pytest.raises(ValueError, match="takes a mode of"):
         t_trace(TTracer(), bounded, torch.from_numpy(org),
                 torch.from_numpy(dirs), torch.from_numpy(mask),
-                training=False, static=True, bounded=True)
+                training=False, mode="static+bounded")
 
 
-@pytest.mark.parametrize("flags", [
-    dict(), dict(use_pallas_secant=True, pallas_in_kernel_pe=True)],
-    ids=["sdf_mlp", "secant_inkpe"])
-def test_renderer_bounded_trace_matches_gathered(setup, flags):
-    """``_frozen_trace(bounded=True)``: the count entries of the SDF-MLP
-    (with and without the PE in the kernel) and of the secant give the
-    gathered trace's bits."""
+@pytest.mark.parametrize("count", [0, 1, 63, 64, 65, 150, 200])
+def test_bounded_rows_runs_the_tiles_below_the_count(count):
+    n, tile = 200, 64
+    x = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3)
+    seen = []
+
+    def fn(a, c):
+        seen.append(int(c))
+        return a.sum(-1)
+
+    out = bounded_rows(fn, x, torch.tensor(count, dtype=torch.int32),
+                       torch.full((n,), -1.0), tile=tile)
+    live = min(-(-count // tile) * tile, n)
+    assert torch.equal(out[:live], x[:live].sum(-1))
+    assert (out[live:] == -1).all()
+    assert seen == [min(tile, count - s) for s in range(0, live, tile)]
+
+
+@pytest.mark.parametrize("flags,tile", [
+    (dict(), None), (dict(use_pallas_secant=True, pallas_in_kernel_pe=True),
+                     None),
+    (dict(use_pallas_trace=False), None), (dict(use_pallas_trace=False), 64),
+    (dict(), 64)],
+    ids=["sdf_mlp", "secant_inkpe", "plain", "plain_tiles", "sdf_mlp_tiles"])
+def test_renderer_bounded_trace_matches_gathered(setup, flags, tile,
+                                                 monkeypatch):
+    """``_frozen_trace(mode="bounded")``: the count entries of the SDF-MLP
+    (with and without the PE in the kernel) and of the secant, and the
+    plain field, give the gathered trace's bits, with the torch work of a
+    block (the plain field, the PE) in one tile or in tiles of 64 rows."""
     from mvsdf_tpu_torch.config import ModelConfig
     from mvsdf_tpu_torch.fields.network import MVSDFNetwork
     from mvsdf_tpu_torch.fields.radiance import RenderConfig
     from mvsdf_tpu_torch.rendering.renderer import _frozen_trace
     _, _, implicit, org, dirs, mask, steps = setup
     tracer = dataclasses.replace(TTracer(), **CASES["train_unified_nofill"][1])
+    if tile is not None:
+        monkeypatch.setattr(compaction, "TILE_ROWS", tile)
+        monkeypatch.setattr(compaction, "MAX_TILES", 1 << 20)
     cfg = ModelConfig(implicit=implicit.cfg, tracer=tracer,
-                      use_pallas_trace=True, **flags)
+                      **dict(dict(use_pallas_trace=True), **flags))
     net = MVSDFNetwork(implicit.cfg, RenderConfig(feature_vector_size=16,
                                                   dims=(64,)))
     net.implicit = implicit
     args = (cfg, net, torch.from_numpy(org), torch.from_numpy(dirs),
             torch.from_numpy(mask), True, torch.from_numpy(steps))
-    got = _frozen_trace(*args, bounded=True)
+    got = _frozen_trace(*args, mode="bounded")
     ref = _frozen_trace(*args)
     for name in got._fields:
         assert torch.equal(getattr(got, name), getattr(ref, name)), name

@@ -921,7 +921,7 @@ def test_count_entries_match_their_plain_versions(cuda, kw):
             assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
 
 
-def _capturable(cuda, cameras=False, fused=False):
+def _capturable(cuda, cameras=False, fused=False, pallas=True):
     """A CapturableStep of a small configuration on a 2-image bench batch
     (served whatever the row says), from seed 0, its row at Adam's first
     step."""
@@ -938,7 +938,7 @@ def _capturable(cuda, cameras=False, fused=False):
         model=ModelConfig(implicit=t_sdf.ImplicitConfig(**SMALL),
                           render=RenderConfig(feature_vector_size=16,
                                               dims=(64, 64)),
-                          use_pallas_trace=True, **flags),
+                          use_pallas_trace=pallas, **flags),
         train=TrainConfig(batch_size=2, num_pixels=512,
                           train_cameras=cameras))
     sc = make_scene(n_images=2, n_pix=512, feat_ch=16)
@@ -967,20 +967,28 @@ def _capturable(cuda, cameras=False, fused=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cameras,fused", [(False, False), (True, False),
-                                           (False, True)],
-                         ids=["sdf_mlp", "cameras", "fused_kernels"])
+@pytest.mark.parametrize("cameras,fused,pallas", [
+    (False, False, True), (True, False, True), (False, True, True),
+    (False, False, False)],
+    ids=["sdf_mlp", "cameras", "fused_kernels", "plain"])
 def test_graph_replay_equals_the_eager_capturable_step(cuda, cameras,
-                                                       fused):
+                                                       fused, pallas,
+                                                       monkeypatch):
     """The captured step replayed from the same state, row and generator
     state as its eager run: every tensor it writes equal to the bit; the
-    kernels' launches added once per replay."""
+    kernels' launches added once per replay (none for the plain field,
+    whose blocks run in 256-row tiles: many conditional nodes)."""
+    from mvsdf_tpu_torch import compaction
     from mvsdf_tpu_torch.tracing.kernels import counts
-    step, row = _capturable(cuda, cameras, fused)
+    monkeypatch.setattr(compaction, "TILE_ROWS", 256)
+    step, row = _capturable(cuda, cameras, fused, pallas)
     step.row.copy_(row(1))
     step.capture()
-    assert step.launches.get("sdf_mlp_xyz_count" if fused else
-                             "sdf_mlp_count")
+    if pallas:
+        assert step.launches.get("sdf_mlp_xyz_count" if fused else
+                                 "sdf_mlp_count")
+    else:
+        assert not any(step.launches.values())
     step.row.copy_(row(2))
     written = step.written()
     before = [t.clone() for t in written]
@@ -1000,6 +1008,44 @@ def test_graph_replay_equals_the_eager_capturable_step(cuda, cameras,
     for i, (a, b) in enumerate(zip(written, eager)):
         assert torch.equal(a, b), i
     assert torch.isfinite(step.metrics).all()
+
+
+@pytest.mark.cuda
+def test_conditional_nodes_run_the_tiles_below_the_count(cuda):
+    """``bounded_rows`` captured with its tiles as conditional nodes: each
+    replay computes the tiles that start below the count on the device,
+    bit for bit the eager calls on those tiles, leaves the others, and
+    never syncs."""
+    from mvsdf_tpu_torch.compaction import bounded_rows
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    n, tile = 1000, 96
+    x = torch.rand((n, 3), device=cuda)
+    w = torch.rand((3, 64), device=cuda)
+
+    def fn(a, c):
+        return (a @ w).relu().sum(-1)
+
+    want = torch.cat([fn(x[s:s + tile], None) for s in range(0, n, tile)])
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    out = torch.zeros(n, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    bodies = ConditionalBodies(cuda)
+    with torch.cuda.graph(graph), bodies:
+        bounded_rows(fn, x, count, out, tile=tile)
+    for c in (0, 1, 95, 96, 97, 500, n):
+        count.fill_(c)
+        out.fill_(-1.0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        live = min(-(-c // tile) * tile, n)
+        assert torch.equal(out[:live], want[:live]), c
+        assert (out[live:] == -1.0).all(), c
+    graph.reset()
+    bodies.release()
 
 
 @pytest.mark.cuda

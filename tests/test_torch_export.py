@@ -145,8 +145,8 @@ def test_static_trace_equals_the_gathered_trace_per_ray(traced, case):
     cfg = dataclasses.replace(TTracer(), **kw)
     sdf = lambda x: t_sdf.sdf_apply(net, x)
     out = [trace_rays(cfg, sdf, org, dirs, mask, training=training,
-                      minimal_steps=steps, static=static)
-           for static in (False, True)]
+                      minimal_steps=steps, mode=mode)
+           for mode in ("gathered", "static")]
     gathered, static = out
     unfinished = gathered.sampler_mask.float().mean().item()
     hits = gathered.network_object_mask.float().mean().item()

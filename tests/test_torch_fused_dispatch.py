@@ -13,6 +13,13 @@ scene).
 - Fused against the JAX fused Trainer: every step's images and pixels, the
   epochs logged and the host RNG after, equal; the lr of each epoch the
   JAX schedule's within rtol 1e-6 (``tests/test_torch_loop.py``'s).
+- Fused against the JAX fused Trainer, both training for real from the
+  JAX Trainer's initial parameters, with the same draws at every step
+  (each side's render_forward given one fixed noise dict, as
+  ``tests/test_torch_step.py`` replays draws): every epoch's metrics within
+  that file's loss bound (1e-4 relative + 1e-7), ``hit_frac`` equal, the
+  lr within rtol 1e-6, and the final parameters within its Adam-step
+  bounds (each entry lr / 2, the median 1e-6).
 - A fused run resumed from its epoch-3 checkpoint ends with the full
   run's parameters, to the bit.
 - The CLI runs chunks by default and ``train_epoch`` under ``--no_fused``.
@@ -20,7 +27,6 @@ scene).
 The port's training runs in subprocesses: a torch optimizer step changes
 XLA:CPU results for the rest of its process.
 """
-import dataclasses
 import json
 import os
 import pickle
@@ -246,6 +252,112 @@ def test_fused_plan_matches_the_jax_fused_trainer(scene_dir, tmp_path,
     np.testing.assert_allclose([r["lr"] for r in rows],
                                [float(lr_for_epoch(r["step"])) for r in rows],
                                rtol=1e-6)
+
+
+JAX_NOISE_RUN = r"""
+import os, pickle, sys
+import numpy as np, torch
+import mvsdf_tpu_torch.train.step as ts
+from mvsdf_tpu_torch.convert import params_from_jax
+from mvsdf_tpu_torch.data.scene import SceneData
+from mvsdf_tpu_torch.train.loop import Trainer
+
+scene_dir, out = sys.argv[1], sys.argv[2]
+cfg, params0, noise = pickle.load(open(os.path.join(out, "in.pkl"), "rb"))
+fixed = {k: torch.from_numpy(np.asarray(v)) for k, v in noise.items()}
+render_forward = ts.render_forward
+
+
+def replay(*args, **kw):   # every step's draws: the fixed noise
+    kw["noise"] = fixed
+    return render_forward(*args, **kw)
+
+
+ts.render_forward = replay
+torch.set_num_threads(2)
+sd = SceneData(scene_dir, allow_random_features=True, device="cpu")
+t = Trainer(cfg, sd, os.path.join(out, "port"), device="cpu",
+            log_fn=lambda *a: None)
+t.state.net.load_state_dict(params_from_jax(params0))
+
+
+def plot(epoch, full=False, **kw):   # the full render's view draw only
+    if full:
+        t.rng.integers(t.scene.n_images)
+
+
+t.plot = plot
+t.run(resume=False)
+np.savez(os.path.join(out, "port.npz"),
+         **{k: v.numpy() for k, v in t.state.net.state_dict().items()})
+"""
+
+
+def test_fused_trains_as_the_jax_fused_trainer(scene_dir, tmp_path,
+                                               monkeypatch):
+    import functools
+
+    import jax
+
+    import mvsdf_tpu.train.step as j_step
+    B, P = 2, 32
+    jcfg = _jcfg(fused=True, epochs_per_dispatch=3)
+    rng = np.random.default_rng(1)
+    n, depth_rows = B * P // 2, B * 16 * 16   # the scene's 16x16 depths
+    noise = {
+        "minimal_steps": rng.uniform(size=12).astype(np.float32),
+        "eik_points": rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+        "dsurf_jitter_noise": rng.uniform(
+            -0.1, 0.1, (depth_rows, 3)).astype(np.float32),
+        "dsurf_on_idx": rng.integers(0, depth_rows, n),
+        "dsurf_jitter_idx": rng.integers(0, depth_rows, n)}
+    params0 = jax.tree_util.tree_map(
+        np.asarray, j_step.init_params(jcfg, seed=jcfg.train.seed))
+    with open(tmp_path / "in.pkl", "wb") as f:
+        pickle.dump((_cfg(fused=True, epochs_per_dispatch=3), params0,
+                     noise), f)
+    res = subprocess.run(
+        [sys.executable, "-c", JAX_NOISE_RUN, scene_dir, str(tmp_path)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    port = np.load(tmp_path / "port.npz")
+
+    monkeypatch.setattr(j_step, "render_forward", functools.partial(
+        j_step.render_forward,
+        noise={k: jnp.asarray(v) for k, v in noise.items()}))
+    jt = JTrainer(jcfg, JScene(scene_dir, allow_random_features=True),
+                  str(tmp_path / "j"), use_mesh=False, log_fn=lambda *a: 0)
+    jt.state = jt.state._replace(
+        params=jax.tree_util.tree_map(jnp.asarray, params0))
+
+    def plot(epoch, full=False, **kw):
+        if full:
+            jt.rng.integers(jt.scene.n_images)
+
+    jt.plot = plot
+    jt.run(resume=False)
+
+    rows, jrows = _rows(tmp_path / "port"), _rows(tmp_path / "j")
+    assert [r["step"] for r in rows] == [r["step"] for r in jrows] == \
+        list(range(6))
+    for r, jr in zip(rows, jrows):
+        for k in METRICS:
+            if k == "hit_frac":
+                assert r[k] == jr[k], (r["step"], k)
+            elif k == "lr":
+                np.testing.assert_allclose(r[k], jr[k], rtol=1e-6)
+            else:
+                assert abs(r[k] - jr[k]) <= 1e-4 * abs(jr[k]) + 1e-7, \
+                    (r["step"], k, r[k], jr[k])
+    lr = jcfg.train.learning_rate * B
+    for net_name in ("implicit", "render"):
+        for i, layer in enumerate(jt.state.params[net_name]):
+            for k, v in layer.items():
+                diff = np.abs(port[f"{net_name}.layers.{i}.{k}"] -
+                              np.asarray(v))
+                assert diff.max() <= lr / 2, (net_name, i, k, diff.max())
+                assert np.median(diff) <= 1e-6, (net_name, i, k)
 
 
 def test_adam_update_equals_torch_adam(port_runs):
