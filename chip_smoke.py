@@ -39,14 +39,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   graph (the plain field on the march's block, the PE on
                   the fallback's) replayed at those counts: the tiles
                   below the count equal the plain call bit for bit, the
-                  rest untouched, no sync; their times
+                  rest untouched, no sync; their times; then the
+                  supervised cascade (the field's value + gradient on the
+                  bench block's 32,768 rows in tiers, the later ones
+                  conditional nodes that autograd passes through; tiers
+                  (0.375,) and (0.25, 0.5)) with a second-order loss,
+                  captured and replayed at count 0, a quarter, one row
+                  over the top tier and all rows: outputs and gradients
+                  equal to the eager call's bits, no sync, within 1e-4 of
+                  the per-epoch pass's with f32 activations (with the
+                  bench's bf16 ones the distance is printed); replay
+                  times beside the dense call's
   3. train        3 warm-up + 5 timed phase-B steps of bench_phaseB, B=8
                   images x P=4096 rays, full-width model from seed 0, on the
                   synthetic bench scene: the trace through sdf_mlp; then the
                   same step as the trainer's fused dispatch runs it, from
                   seed 0: captured into a CUDA graph (seconds, graph pool),
                   one replay against the eager capturable step (equal
-                  bits), 5 replays of a plan uploaded in one copy under
+                  bits) and, in its loss terms and gradient norm, against
+                  the per-epoch step on the same row (1e-4 relative; the
+                  replay's supervised path runs the config's tiers, the
+                  per-epoch one the surface rows alone), 5 replays of a
+                  plan uploaded in one copy under
                   set_sync_debug_mode("error") (no sync) and their
                   ms/step; sdf_mlp_count in every replay
   4. eval         eval-mode render of one view's 4096 rays; a small render
@@ -235,6 +249,13 @@ WARMUP, TIMED = 3, 5
 # capacity, all of it (the tiers the JAX package sizes its compacted
 # fallback blocks at run from 1/16 to 3/8 of the rays)
 COUNT_SHARE = 0.25
+# the supervised cascade's check: the tiers of the bench config and a two
+# tier cascade, and, for the field in f32, its bound against the per-epoch
+# pass, of each tensor's largest entry (f32 sums over other row blocks and
+# GEMM shapes). With the bench config's bf16 activations such a difference
+# flips bf16 roundings, which gradients sum: that distance is printed only
+CASCADE_FRACS = ((0.375,), (0.25, 0.5))
+CASCADE_TOL = 1e-4
 PEAK_BF16 = 989e12             # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_S = 3.35e12
 # the cli phase: a DTU scan's sizes (image_hd is 2x Vis-MVSNet's depth)
@@ -788,6 +809,126 @@ def check_conditional_nodes(net, x, rays):
         del whole, buf
 
 
+def check_cascade(net):
+    """The supervised cascade (``compaction.bounded_cascade_call_into``) at
+    full width on the bench block (B*P rows), in the net's activation
+    precision: the rt_surf group's SDF,
+    indicator logit and spatial gradient of the field, with a loss that
+    reads the gradient (second order) and its gradients with respect to
+    the points and the parameters, for the tiers of each of
+    CASCADE_FRACS, captured once and replayed at count 0, COUNT_SHARE of
+    the rows, one row over the top tier and all rows under
+    set_sync_debug_mode("error"): outputs and gradients equal to the
+    eager call's bits, and, in f32, within CASCADE_TOL of the per-epoch
+    pass's
+    (``compact_call_into``, exactly the active rows; the outputs on those
+    rows). Prints each replay's device ms beside the dense call's."""
+    import torch
+    from mvsdf_tpu_torch.compaction import (bounded_cascade_call_into,
+                                            compact_call_into)
+    from mvsdf_tpu_torch.fields.sdf import full_value_and_grad
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    dev = next(net.parameters()).device
+    bf16 = net.cfg.bf16_activations
+    n = B * P
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+         ).requires_grad_(True)
+    order = torch.randperm(n, generator=g, device=dev)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    targets = [torch.zeros((n, 2), device=dev), torch.zeros((n, 3), device=dev)]
+    params = list(net.parameters())
+    bufs = [torch.zeros_like(t) for t in targets + [x] + params]
+
+    def fn(p):
+        out, grad = full_value_and_grad(net, p)
+        return out[..., :2], grad
+
+    def step(call):
+        o, gr = call()
+        m = mask.float()
+        loss = (m * (o[:, 0] ** 2 + o[:, 1] +
+                     ((gr ** 2).sum(-1) - 1) ** 2)).sum()
+        got = torch.autograd.grad(loss, [x] + params)
+        with torch.no_grad():
+            for buf, v in zip(bufs, [o, gr, *got]):
+                buf.copy_(v)
+
+    def gathered():
+        return compact_call_into(fn, mask, [x], targets)
+
+    for fracs in CASCADE_FRACS:
+        caps = tuple(max(128, int(n * f)) for f in fracs)
+
+        def cascade(caps=caps):
+            return bounded_cascade_call_into(fn, mask, caps, [x], targets,
+                                             module=net)
+        counts = (0, int(n * COUNT_SHARE), max(caps) + 1, n)
+        want, err = {}, 0.0
+        for c in counts:
+            mask.zero_()[order[:c]] = True
+            if c:
+                step(gathered)
+                ref = [b.clone() for b in bufs]
+            step(cascade)
+            want[c] = [b.clone() for b in bufs]
+            if c:
+                act = mask[:, None]
+                for i, (a, b) in enumerate(zip(want[c], ref)):
+                    if i < 2:
+                        a, b = a * act, b * act
+                    e = ((a - b).abs().max() / b.abs().max().clamp_min(
+                        1e-30)).item()
+                    if not (bf16 or e <= CASCADE_TOL):
+                        raise AssertionError(
+                            f"cascade {fracs}, count {c}: tensor {i} is "
+                            f"{e:.3e} of its largest entry from the "
+                            f"per-epoch pass's")
+                    err = max(err, e)
+        mask.fill_(True)
+        dense_ms = cuda_ms(lambda: step(lambda: bounded_cascade_call_into(
+            fn, mask, (), [x], targets, module=net)), iters=3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        bodies = ConditionalBodies(dev)
+        with torch.cuda.graph(graph), bodies:
+            step(cascade)
+        pool = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
+        ms = []
+        for c in counts:
+            mask.zero_()[order[:c]] = True
+            for b in bufs:
+                b.fill_(-1.0)
+            torch.cuda.synchronize()
+            with sync_debug_error():
+                graph.replay()
+            torch.cuda.synchronize()
+            bad = [i for i, (a, b) in enumerate(zip(bufs, want[c]))
+                   if not torch.equal(a, b)]
+            with sync_debug_error():
+                ms.append(cuda_ms(graph.replay, iters=3))
+            if bad:
+                raise AssertionError(f"cascade {fracs}, count {c}: a replay "
+                                     f"differs from the eager call in "
+                                     f"tensors {bad}")
+        log(f"[kernel] supervised cascade, {'bf16' if bf16 else 'f32'} "
+            f"activations, tiers {caps} of {n} rows (a loss "
+            f"on the value + gradient, gradients of points and parameters;"
+            f" graph pools {pool:.1f} MiB): replays at counts "
+            f"{' / '.join(map(str, counts))} equal the eager call bit for "
+            f"bit, no sync; {' / '.join(f'{t:.3f}' for t in ms)} ms "
+            f"against {dense_ms:.3f} ms for the dense call; the per-epoch "
+            f"pass within {err:.3e} of each tensor's largest entry"
+            f"{' (not gated)' if bf16 else f' (bound {CASCADE_TOL})'}")
+        graph.reset()
+        bodies.release()
+        del graph
+    del bufs, want
+    torch.cuda.empty_cache()
+
+
 class BatchCache:
     """Serves the bench batch to a CapturableStep whatever its row's
     image and pixel ids say: every bench step takes the same batch, as the
@@ -835,11 +976,36 @@ def replay_against_eager(step):
             if not torch.equal(a, b)]
 
 
+def per_epoch_metrics(step):
+    """The loss terms, hit_frac and grad norm of the per-epoch step's
+    gradients (``mode=GATHERED``: the supervised path on exactly the
+    surface rows) on the captured step's state, row and generator state;
+    the state, the generator and the kernel counts are left as they
+    were."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import counts as C
+    from mvsdf_tpu_torch.train.step import _gradients
+    before = C.snapshot()
+    gen = step.generator.get_state()
+    row = step.row
+    batch = step.cache.gather(row[:step.B].long(),
+                              row[step.B:step.B + step.P].long())
+    *_, shares, gnorm = _gradients(step.cfg, step.gates, step.state, batch,
+                                   step.weights, step.generator, None)
+    step.generator.set_state(gen)
+    C.add({k: -v for k, v in C.since(before).items()})
+    return torch.cat([shares, gnorm.reshape(1)]).detach()
+
+
 def graph_steps(tag, cfg, batch, gen, dev, eager_ms, every):
     """The configuration's phase-B step as the trainer's fused path runs
     it (a CapturableStep captured into a CUDA graph) on the bench batch,
     from seed 0: the capture (its seconds and graph pool); one replay
-    against the eager capturable step (equal bits); TIMED replays of a
+    against the eager capturable step (equal bits), its loss terms,
+    hit_frac and grad norm against the per-epoch step's on the same row
+    (within 1e-4 relative + 1e-7, ``tests/test_torch_step.py``'s bounds:
+    the supervised path there runs on exactly the surface rows, here on
+    the tiers of ``supervised_compact_frac``); TIMED replays of a
     plan uploaded in one copy under set_sync_debug_mode("error") (no
     synchronizing operation), their ms/step beside the eager path's
     ``eager_ms``. Every kernel in ``every`` must launch in a replay.
@@ -862,9 +1028,13 @@ def graph_steps(tag, cfg, batch, gen, dev, eager_ms, every):
     zero_counts()
     step.row.copy_(torch.from_numpy(row(1)))
     step.capture()
-    bad = []
     step.row.copy_(torch.from_numpy(row(2)))
+    ref = per_epoch_metrics(step)
     bad = replay_against_eager(step)
+    got = step.metrics[:ref.numel()]
+    # tests/test_torch_step.py's bounds: 1e-4 relative + 1e-7
+    off = ((got - ref).abs() - 1e-4 * ref.abs()).max().item()
+    rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
     plan = torch.from_numpy(np.stack([row(t) for t in range(3, 3 + TIMED)])
                             ).pin_memory()
     out = torch.empty((TIMED, step.metrics.numel()), device=dev)
@@ -886,10 +1056,16 @@ def graph_steps(tag, cfg, batch, gen, dev, eager_ms, every):
         f"{'equal bits' if not bad else f'{len(bad)} tensors differ {bad[:5]}'}"
         f"; {TIMED} replays under set_sync_debug_mode('error'): no sync, "
         f"{ms:.1f} ms/step against the per-epoch step's {eager_ms:.1f}; "
+        f"the replay's loss terms, hit_frac and grad norm within {rel:.3e} "
+        f"(relative) of the per-epoch step's on the same row; "
         f"launches a replay {step.launches}; last metrics "
         f"{[round(v, 5) for v in out[-1].tolist()]}")
     if bad:
         raise AssertionError(f"{tag}: a replay differs from the eager step")
+    if not off <= 1e-7:
+        raise AssertionError(f"{tag}: the replay's metrics are off the "
+                             f"per-epoch step's: {got.tolist()} against "
+                             f"{ref.tolist()}")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{tag}: non-finite metrics under replay")
     for k in every:
@@ -2795,6 +2971,11 @@ def main():
         entries += check_count_entries(net.implicit, tcfg, packed, x, pe,
                                        sec_args, sec_gate, weight_bytes)
         check_conditional_nodes(net.implicit, x, rays)
+    plain_field = copy.deepcopy(net.implicit)
+    plain_field.cfg = dataclasses.replace(icfg, bf16_activations=False)
+    check_cascade(plain_field)
+    check_cascade(net.implicit)
+    del plain_field
 
     # 3-6. the main path in both trace configurations
     state, launches, stats = train("train", cfg, batch, gen, dev,

@@ -9,7 +9,12 @@ from the end of phase A).
 Fields that only steer XLA in the JAX package (``shard_map_trace``,
 ``supervised_remat``, ``pallas_block``, ``pallas_march_block``,
 ``pallas_interpret``, the capacity fractions) are accepted so configs
-carry over, and have no effect here. ``TrainConfig.fused_dispatch`` and
+carry over, and change no result here. ``supervised_compact_frac`` sets
+the tiers of the graph-replayed step's supervised cascade
+(``compaction.bounded_cascade_call_into``), whose later tiers are always
+recomputed in the backward: JAX's ``supervised_remat=True``, whose
+gradients equal the stored forward's, so ``supervised_remat`` has no
+effect here. ``TrainConfig.fused_dispatch`` and
 ``epochs_per_dispatch`` choose the trainer's path as in the JAX package
 (``train/loop.py``).
 """
@@ -144,9 +149,13 @@ class ModelConfig:
     pallas_in_kernel_pe: bool = False
     # Supervised-path compaction: non-empty runs the rt_surf group and the
     # shading only on surface-hit lanes (exact; every consumer masks the
-    # other lanes to zero). The fractions do not change results.
+    # other lanes to zero): the per-epoch step gathers exactly those, the
+    # graph-replayed step takes the tier of these fractions that fits them,
+    # as JAX does. The fractions do not change results.
     supervised_compact_frac: Tuple[float, ...] = ()
-    supervised_remat: bool = True      # no effect here
+    # the graph-replayed step always recomputes the later tiers in the
+    # backward (JAX's remat, equal gradients): no effect here
+    supervised_remat: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

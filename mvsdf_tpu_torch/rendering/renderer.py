@@ -35,11 +35,13 @@ captured by ``torch.export`` (``eval/export.py``).
 ``mode=BOUNDED`` is the pass a CUDA graph captures (the graph-replayed
 training step, ``train/step.CapturableStep``): the trace's bounded
 formulation (``trace_rays(mode=BOUNDED)``), its SDF evaluations and secant
-through the kernels' count entries, and the supervised path and the
-shading dense, whatever ``supervised_compact_frac`` says: the JAX
-package's compact branch needs a dense overflow branch, which a graph
-would have to take as a conditional node, so the graph runs JAX's own
-``supervised_compact_frac=()`` formulation (exact, rows independent).
+through the kernels' count entries, and, where ``supervised_compact_frac``
+asks for it, the rt_surf value + gradient and the shading through the JAX
+package's capacity cascade with no host sync
+(``compaction.bounded_cascade_call_into``: the tiers after the first are
+conditional nodes of the graph, recomputed in the backward as JAX's
+``supervised_remat`` does). The per-epoch pass gathers exactly the surface
+rows instead (``compact_call_into``); both give JAX's per-row results.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..compaction import bounded_rows, compact_call_into
+from ..compaction import (bounded_cascade_call_into, bounded_rows,
+                          compact_call_into)
 from ..config import Gates, ModelConfig
 from ..fields.embedder import positional_encoding
 from ..fields.network import MVSDFNetwork
@@ -252,7 +255,15 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
         min_steps = None
     tr = _frozen_trace(cfg, net, org.detach(), ray_dirs.detach(),
                        object_mask, training, min_steps, mode)
-    compact = bool(cfg.supervised_compact_frac) and mode != BOUNDED
+    compact = bool(cfg.supervised_compact_frac)
+    # JAX's tiers: the capacities of the supervised cascade over B*P rows
+    caps = tuple(max(128, int(B * P * f)) for f in cfg.supervised_compact_frac)
+
+    def compact_into(fn, mask, inputs, targets, out_masks=None, module=None):
+        if mode == BOUNDED:
+            return bounded_cascade_call_into(fn, mask, caps, inputs, targets,
+                                             out_masks, module)
+        return compact_call_into(fn, mask, inputs, targets, out_masks)
     dists = tr.dists.detach()
     net_obj_mask = tr.network_object_mask
     points = org + dists[..., None] * ray_dirs
@@ -302,11 +313,12 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                 out, g = full_value_and_grad(net.implicit, p)
                 return out[..., :2], g
 
-            o_flat, gr_flat = compact_call_into(
+            o_flat, gr_flat = compact_into(
                 sdf_logit_grad, surface_mask.reshape(N),
                 [points.reshape(N, 3)],
                 [torch.zeros((N, 2), device=dev),
-                 torch.zeros((N, 3), device=dev)])
+                 torch.zeros((N, 3), device=dev)],
+                module=net.implicit)
             full_out = o_flat.reshape(B, P, 2)
             g_rt = gr_flat.reshape(B, P, 3)
             groups = {"rt_surf": {"points": points, "sdf": full_out[..., 0],
@@ -369,9 +381,10 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
         # shading reads only surface lanes; the rest keep rgb = 1
         N = B * P
         sm_flat = surface_mask.reshape(N)
-        (rgb_flat,) = compact_call_into(
+        (rgb_flat,) = compact_into(
             shade, sm_flat, [diff_surf_pts.reshape(N, 3), view.reshape(N, 3)],
-            [torch.ones((N, 3), device=dev)], out_masks=[sm_flat])
+            [torch.ones((N, 3), device=dev)], out_masks=[sm_flat],
+            module=net)
         rgb_values = rgb_flat.reshape(B, P, 3)
     else:
         (rgb,) = shade(diff_surf_pts, view)

@@ -266,7 +266,9 @@ class CapturableStep:
     patterns of ``adam_scalars``. It gathers the batch from the device
     scene cache itself, renders in the bounded formulation
     (``render_forward(mode=BOUNDED)``: the trace through the kernels'
-    count entries, the supervised path dense), and updates the parameters,
+    count entries, the supervised path and the shading through the
+    supervised cascade's tiers, the later ones conditional nodes that
+    autograd passes through), and updates the parameters,
     Adam's moments and, with cameras, the poses and their SparseAdam state
     in place. It writes the metrics (METRIC_KEYS) into ``self.metrics``.
 
@@ -281,7 +283,10 @@ class CapturableStep:
     On the CPU ``__call__`` runs the step eagerly: that is the graph's
     plain version. On the GPU ``capture()`` runs the step of the current
     row on a side stream (a real step, the warm-up), then captures the
-    step without running it; ``__call__`` then replays it. Kernel launch
+    step without running it; ``__call__`` then replays it. The
+    conditional nodes' bodies, forward and backward, allocate from the
+    pool of the graph's ``ConditionalBodies``, which ``release()`` gives
+    back with the graph. Kernel launch
     counts (``tracing/kernels/counts``) are taken at the capture and added
     once per replay. Capture after any restore: the graph holds the
     addresses of the state's tensors."""
@@ -366,8 +371,9 @@ class CapturableStep:
     def capture(self):
         """Run the step of the current row on a side stream (the warm-up: a
         real step), then capture the step into a CUDA graph with the
-        generator registered, its bounded blocks' tiles as conditional
-        nodes (``graph_cond.ConditionalBodies``)."""
+        generator registered, its bounded blocks' tiles and the
+        supervised cascade's later tiers as conditional nodes
+        (``graph_cond.ConditionalBodies``)."""
         from ..tracing.kernels.graph_cond import ConditionalBodies
         dev = self.device
         side = torch.cuda.Stream(dev)

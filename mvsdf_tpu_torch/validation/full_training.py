@@ -102,12 +102,15 @@ def parse_args(argv=None):
                          "the JAX script chooses them (auto/top: "
                          "auto_supervised_cascade; off: dense; twotier: "
                          "(0.25, bound); bound: the bound tier even at 0.5 "
-                         "or more). The port gathers exactly the hit lanes "
-                         "whenever a tier is set, so the tiers' values "
-                         "change no result")
+                         "or more). Whenever a tier is set the port's "
+                         "per-epoch step gathers exactly the hit lanes and "
+                         "its graph-replayed step takes the tiers, as JAX "
+                         "does; their values change no result")
     ap.add_argument("--no_supervised_remat", action="store_true",
-                    help="accepted for the JAX script's sake; no effect "
-                         "(ModelConfig.supervised_remat)")
+                    help="accepted for the JAX script's sake; no effect: "
+                         "the port's graph-replayed step always recomputes "
+                         "the later tiers in the backward, with equal "
+                         "gradients (ModelConfig.supervised_remat)")
     ap.add_argument("--out", default="mvsdf_validation")
     return ap.parse_args(argv)
 

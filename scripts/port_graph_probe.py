@@ -22,13 +22,31 @@ Answers the questions the trainer's graph-replayed chunk path rests on:
      quarter, a half and all rows: each replay's device ms (CUDA events)
      and its rows below the count against the eager dense call, beside
      the dense call's ms; and no synchronizing op in the replays
-     (``set_sync_debug_mode("error")``).
+     (``set_sync_debug_mode("error")``);
+  6. cond_autograd: whether autograd passes through conditional nodes
+     under capture: a ``torch.autograd.Function`` whose forward runs the
+     full-width ``fields/sdf.full_value_and_grad`` (which calls
+     ``torch.autograd.grad(create_graph=True)`` itself) under one
+     ``run_if``, and whose backward recomputes it and calls
+     ``torch.autograd.grad`` under a second ``run_if`` with the same
+     predicate, captured with ``torch.autograd.grad`` of a loss through
+     it inside the same capture (as the training step does). The
+     backward's recompute reads fresh leaves in place of the parameters
+     (``compaction.parameters_as``), as ``compaction._Segment`` does;
+     ``cond_autograd_params`` differentiates with respect to the
+     parameters themselves instead (run it last: its refusal may end the
+     process). Reports the thread and stream the backward ran on, the
+     capture's refusal if any (the op's frame), and for the predicate off
+     and on: each replay's outputs and gradients against the eager call's
+     bits, no sync, the device ms beside the eager call's, and the graph
+     and bodies' pools.
 
     python3 scripts/port_graph_probe.py [--only if_node,...] [--out f]
 
 Prints one JSON object (and writes it to --out if given). Needs a GPU.
 """
 import argparse
+import faulthandler
 import json
 import os
 import subprocess
@@ -267,6 +285,132 @@ def probe_if_node(state, dev):
     return out
 
 
+def probe_cond_autograd(state, dev, leaves=True, n=8192):
+    """Probe 6 (module docstring) on ``n`` rows of the bench field."""
+    import threading
+    import torch
+    from mvsdf_tpu_torch.compaction import parameters_as, run_if
+    from mvsdf_tpu_torch.fields.sdf import full_value_and_grad
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    net = state.net.implicit
+    params = [p for p in net.parameters()]
+    seen = {}
+
+    class Segment(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pred, x, *ps):
+            out = x.new_zeros(x.shape[0], 2)
+            grad = x.new_zeros(x.shape[0], 3)
+
+            def body():
+                o, g = full_value_and_grad(net, x)
+                out.copy_(o[..., :2])
+                grad.copy_(g)
+            run_if(pred, body)
+            ctx.save_for_backward(pred, x)
+            return out, grad
+
+        @staticmethod
+        def backward(ctx, g_out, g_grad):
+            pred, x = ctx.saved_tensors
+            seen["backward_thread_is_main"] = (
+                threading.current_thread() is threading.main_thread())
+            seen["backward_stream_capturing"] = (
+                torch.cuda.is_current_stream_capturing())
+            gx = torch.zeros_like(x)
+            gps = [torch.zeros_like(p) for p in params]
+
+            def body():
+                ps = [p.detach().requires_grad_(True) for p in params] \
+                    if leaves else params
+                with torch.enable_grad(), parameters_as(net, ps):
+                    xl = x.detach().requires_grad_(True)
+                    o, g = full_value_and_grad(net, xl)
+                    got = torch.autograd.grad(
+                        (o[..., :2], g), [xl] + ps, (g_out, g_grad),
+                        allow_unused=True)
+                for buf, v in zip([gx] + gps, got):
+                    if v is not None:
+                        buf.copy_(v)
+            run_if(pred, body)
+            return (None, gx, *gps)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x0 = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+    x = x0.clone().requires_grad_(True)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    outs = [torch.zeros(n, 2, device=dev), torch.zeros(n, 3, device=dev),
+            torch.zeros(n, 3, device=dev)] + [torch.zeros_like(p)
+                                              for p in params]
+
+    def step():
+        o, g = Segment.apply(pred, x, *params)
+        loss = (o[:, 0] ** 2).sum() + o[:, 1].sum() + \
+            ((g.norm(dim=-1) - 1) ** 2).sum()
+        got = torch.autograd.grad(loss, [x] + params)
+        with torch.no_grad():   # a copy that records no graph
+            for buf, v in zip(outs, [o, g] + list(got)):
+                buf.copy_(v)
+
+    def eager(p):
+        pred.fill_(p)
+        step()
+        torch.cuda.synchronize()
+        return [t.clone() for t in outs]
+
+    out = {"rows": n, "fresh_leaves": leaves}
+    print("cond_autograd: eager", file=sys.stderr, flush=True)
+    want = {p: eager(p) for p in (False, True)}
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    pred.fill_(True)
+    e[0].record()
+    step()
+    e[1].record()
+    torch.cuda.synchronize()
+    out["eager_ms"] = e[0].elapsed_time(e[1])
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    graph = torch.cuda.CUDAGraph()
+    bodies = ConditionalBodies(dev)
+    print("cond_autograd: capture", file=sys.stderr, flush=True)
+    try:
+        with torch.cuda.graph(graph), bodies:
+            step()
+    except Exception as exc:  # what refused, reported
+        tb = traceback.extract_tb(exc.__traceback__)
+        torch.cuda.synchronize()
+        out.update(seen, capture=f"{type(exc).__name__}: "
+                   f"{str(exc).splitlines()[0][:300]} at {where(tb)}")
+        return out
+    torch.cuda.synchronize()
+    out.update(seen, capture="captured", pools_mib=(
+        torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20)
+    print("cond_autograd: replays", file=sys.stderr, flush=True)
+    for p in (False, True, False, True):
+        pred.fill_(p)
+        for t in outs:
+            t.fill_(-1.0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            e[0].record()
+            graph.replay()
+            e[1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        diff = [float((a - b).abs().max()) for a, b in zip(outs, want[p])]
+        out.setdefault(f"pred_{p}", []).append({
+            "ms": e[0].elapsed_time(e[1]),
+            "equal_eager": all(torch.equal(a, b)
+                               for a, b in zip(outs, want[p])),
+            "max_abs_diff": max(diff),
+            "grad_x_zero": bool((outs[2] == 0).all())})
+    graph.reset()
+    bodies.release()
+    return out
+
+
 def probe_kernels(cfg, state, dev):
     import torch
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
@@ -320,10 +464,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--only", default="generator,cond,kernels,if_node,"
-                    "step_syncs,step_capture",
+                    "cond_autograd,step_syncs,step_capture",
                     help="comma-separated probes to run")
     args = ap.parse_args()
     only = args.only.split(",")
+    faulthandler.enable()
     import torch
     if not torch.cuda.is_available():
         sys.exit("port_graph_probe: needs a CUDA GPU")
@@ -351,6 +496,9 @@ def main():
         "cond": probe_cond,
         "kernels": lambda: probe_kernels(cfg, state, dev),
         "if_node": lambda: probe_if_node(state, dev),
+        "cond_autograd": lambda: probe_cond_autograd(state, dev),
+        "cond_autograd_params": lambda: probe_cond_autograd(state, dev,
+                                                            leaves=False),
         "step_syncs": lambda: step_syncs(step, state, batch, weights, gen),
         # last: a refused capture may leave the context unusable
         "step_capture": lambda: capture_refusal(

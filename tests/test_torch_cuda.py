@@ -1104,3 +1104,147 @@ def test_adam_update_equals_torch_adam_on_the_card(cuda):
     ref, got = _adam_pair(cuda)
     for a, b in zip(ref, got):
         assert torch.equal(a, b)
+
+
+def _replay_quietly(graph):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_autograd_passes_through_a_conditional_node(cuda):
+    """What ``scripts/port_graph_probe.py --only cond_autograd`` found: a
+    ``torch.autograd.Function`` whose forward runs a value + spatial
+    gradient (autograd inside) under one ``run_if`` and whose backward
+    recomputes it on fresh leaves and calls ``torch.autograd.grad`` under a
+    second, captured with ``torch.autograd.grad`` of a loss through it:
+    replays with the predicate off and on equal the eager calls to the bit,
+    with no sync, and a skipped node gives zero gradient."""
+    from mvsdf_tpu_torch.compaction import parameters_as, run_if
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    net = t_sdf.init_implicit(t_sdf.ImplicitConfig(**SMALL),
+                              np.random.default_rng(0)).to(cuda)
+    params = list(net.parameters())
+
+    class Node(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pred, x, *ps):
+            out = torch.zeros_like(x)
+            run_if(pred, lambda: out.copy_(t_sdf.full_value_and_grad(
+                net, x)[1]))
+            ctx.save_for_backward(pred, x, *ps)
+            return out
+
+        @staticmethod
+        def backward(ctx, g_out):
+            pred, *args = ctx.saved_tensors
+            grads = [torch.zeros_like(a) for a in args]
+
+            def body():
+                leaves = [a.detach().requires_grad_(True) for a in args]
+                with torch.enable_grad(), parameters_as(net, leaves[1:]):
+                    g = t_sdf.full_value_and_grad(net, leaves[0])[1]
+                for buf, v in zip(grads, torch.autograd.grad(
+                        g, leaves, g_out, allow_unused=True)):
+                    if v is not None:
+                        buf.copy_(v)
+            run_if(pred, body)
+            return (None, *grads)
+
+    x = (torch.rand((1000, 3), device=cuda) * 2 - 1).requires_grad_(True)
+    pred = torch.zeros((), dtype=torch.bool, device=cuda)
+    bufs = [torch.zeros_like(t) for t in [x, x] + params]
+
+    def step():
+        g = Node.apply(pred, x, *params)
+        loss = ((g ** 2).sum(-1) - 1).square().sum()
+        got = torch.autograd.grad(loss, [x] + params)
+        with torch.no_grad():
+            for buf, v in zip(bufs, [g, *got]):
+                buf.copy_(v)
+
+    want = {}
+    for p in (False, True):
+        pred.fill_(p)
+        step()
+        want[p] = [b.clone() for b in bufs]
+    assert all(not b.any() for b in want[False][2:])
+    assert all(b.abs().sum() > 0 for b in want[True][:3])
+    graph = torch.cuda.CUDAGraph()
+    bodies = ConditionalBodies(cuda)
+    with torch.cuda.graph(graph), bodies:
+        step()
+    for p in (True, False, True):
+        pred.fill_(p)
+        for b in bufs:
+            b.fill_(-1.0)
+        _replay_quietly(graph)
+        for i, (a, b) in enumerate(zip(bufs, want[p])):
+            assert torch.equal(a, b), (p, i)
+    graph.reset()
+    bodies.release()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(768,), (512, 1024)],
+                         ids=["one_cap", "two_caps"])
+def test_cascade_replays_equal_the_eager_call(cuda, caps):
+    """``bounded_cascade_call_into`` of a width-64 field's SDF, indicator
+    and spatial gradient (a loss on the gradient: second order), captured
+    with ``ConditionalBodies``: replays at counts 0, below the first cap,
+    at it, between the caps, over the top one and all rows equal the eager
+    call's outputs and gradients (inputs and parameters) to the bit, with
+    no sync."""
+    from mvsdf_tpu_torch.compaction import bounded_cascade_call_into
+    from mvsdf_tpu_torch.tracing.kernels.graph_cond import ConditionalBodies
+    net = t_sdf.init_implicit(t_sdf.ImplicitConfig(**SMALL),
+                              np.random.default_rng(0)).to(cuda)
+    params = list(net.parameters())
+    n = 2048
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
+         ).requires_grad_(True)
+    order = torch.randperm(n, generator=g, device=cuda)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    targets = [torch.zeros((n, 2), device=cuda),
+               torch.zeros((n, 3), device=cuda)]
+    bufs = [torch.zeros_like(t) for t in targets + [x] + params]
+
+    def fn(p):
+        out, grad = t_sdf.full_value_and_grad(net, p)
+        return out[..., :2], grad
+
+    def step():
+        o, gr = bounded_cascade_call_into(fn, mask, caps, [x], targets,
+                                          module=net)
+        m = mask.float()
+        loss = (m * (o[:, 0] ** 2 + o[:, 1] +
+                     ((gr ** 2).sum(-1) - 1) ** 2)).sum()
+        got = torch.autograd.grad(loss, [x] + params)
+        with torch.no_grad():
+            for buf, v in zip(bufs, [o, gr, *got]):
+                buf.copy_(v)
+
+    counts = (0, 300, caps[0], (caps[0] + caps[-1]) // 2, caps[-1] + 1, n)
+    want = {}
+    for c in counts:
+        mask.zero_()[order[:c]] = True
+        step()
+        want[c] = [b.clone() for b in bufs]
+    graph = torch.cuda.CUDAGraph()
+    bodies = ConditionalBodies(cuda)
+    with torch.cuda.graph(graph), bodies:
+        step()
+    for c in counts[::-1] + counts:
+        mask.zero_()[order[:c]] = True
+        for b in bufs:
+            b.fill_(-1.0)
+        _replay_quietly(graph)
+        for i, (a, b) in enumerate(zip(bufs, want[c])):
+            assert torch.equal(a, b), (c, i)
+    graph.reset()
+    bodies.release()

@@ -57,7 +57,8 @@ METRICS = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
            "surf_loss", "grad_norm", "lr", "hit_frac")
 
 
-def _cfg(nepochs=5, fused=True, epochs_per_dispatch=16):
+def _cfg(nepochs=5, fused=True, epochs_per_dispatch=16, num_pixels=32,
+         supervised_compact_frac=()):
     """The port's counterpart of the JAX test's ``_cfg``."""
     return tc.MVSDFConfig(
         model=tc.ModelConfig(
@@ -66,8 +67,10 @@ def _cfg(nepochs=5, fused=True, epochs_per_dispatch=16):
             render=TRender(feature_vector_size=32, dims=(32,),
                            multires_view=2),
             tracer=TTracer(sphere_tracing_iters=3, n_steps=12,
-                           n_secant_steps=2, sample_chunk=0)),
-        train=tc.TrainConfig(batch_size=2, num_pixels=32, nepochs=nepochs,
+                           n_secant_steps=2, sample_chunk=0),
+            supervised_compact_frac=supervised_compact_frac),
+        train=tc.TrainConfig(batch_size=2, num_pixels=num_pixels,
+                             nepochs=nepochs,
                              fused_dispatch=fused,
                              epochs_per_dispatch=epochs_per_dispatch))
 
@@ -165,7 +168,8 @@ def port_runs(scene_dir, tmp_path_factory):
     return out, dict(np.load(out / "port.npz"))
 
 
-def _jcfg(nepochs=5, fused=True, epochs_per_dispatch=16):
+def _jcfg(nepochs=5, fused=True, epochs_per_dispatch=16, num_pixels=32,
+          supervised_compact_frac=()):
     return jc.MVSDFConfig(
         model=jc.ModelConfig(
             implicit=JImplicit(feature_vector_size=32, dims=(32,) * 2,
@@ -173,9 +177,11 @@ def _jcfg(nepochs=5, fused=True, epochs_per_dispatch=16):
             render=JRender(feature_vector_size=32, dims=(32,),
                            multires_view=2),
             tracer=JTracer(sphere_tracing_iters=3, n_steps=12,
-                           n_secant_steps=2, sample_chunk=0)),
+                           n_secant_steps=2, sample_chunk=0),
+            supervised_compact_frac=supervised_compact_frac),
         schedule=jc.Schedule(),
-        train=jc.TrainConfig(batch_size=2, num_pixels=32, nepochs=nepochs,
+        train=jc.TrainConfig(batch_size=2, num_pixels=num_pixels,
+                             nepochs=nepochs,
                              fused_dispatch=fused,
                              epochs_per_dispatch=epochs_per_dispatch))
 
@@ -295,13 +301,33 @@ np.savez(os.path.join(out, "port.npz"),
 
 def test_fused_trains_as_the_jax_fused_trainer(scene_dir, tmp_path,
                                                monkeypatch):
+    _train_against_jax(scene_dir, tmp_path, monkeypatch)
+
+
+def test_fused_trains_as_the_jax_fused_trainer_compacted(scene_dir, tmp_path,
+                                                         monkeypatch):
+    """The same with ``supervised_compact_frac=(0.375,)`` at 2 x 512 rays
+    (at 2 x 32 every tier is dropped): JAX's fused step takes its
+    capacity cascade, the port's captured step's plain version
+    ``bounded_cascade_call_into``."""
+    hits = _train_against_jax(scene_dir, tmp_path, monkeypatch, P=512,
+                              supervised_compact_frac=(0.375,))
+    # the surface rows of some step reach past the 384-row tier
+    assert max(hits) * 2 * 512 > 384, hits
+
+
+def _train_against_jax(scene_dir, tmp_path, monkeypatch, P=32,
+                       supervised_compact_frac=()):
+    """Both fused trainers from the JAX Trainer's initial parameters, with
+    the same draws at every step; returns the port's hit_frac by epoch."""
     import functools
 
     import jax
 
     import mvsdf_tpu.train.step as j_step
-    B, P = 2, 32
-    jcfg = _jcfg(fused=True, epochs_per_dispatch=3)
+    B = 2
+    sup = dict(num_pixels=P, supervised_compact_frac=supervised_compact_frac)
+    jcfg = _jcfg(fused=True, epochs_per_dispatch=3, **sup)
     rng = np.random.default_rng(1)
     n, depth_rows = B * P // 2, B * 16 * 16   # the scene's 16x16 depths
     noise = {
@@ -314,8 +340,8 @@ def test_fused_trains_as_the_jax_fused_trainer(scene_dir, tmp_path,
     params0 = jax.tree_util.tree_map(
         np.asarray, j_step.init_params(jcfg, seed=jcfg.train.seed))
     with open(tmp_path / "in.pkl", "wb") as f:
-        pickle.dump((_cfg(fused=True, epochs_per_dispatch=3), params0,
-                     noise), f)
+        pickle.dump((_cfg(fused=True, epochs_per_dispatch=3, **sup),
+                     params0, noise), f)
     res = subprocess.run(
         [sys.executable, "-c", JAX_NOISE_RUN, scene_dir, str(tmp_path)],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"),
@@ -358,6 +384,7 @@ def test_fused_trains_as_the_jax_fused_trainer(scene_dir, tmp_path,
                               np.asarray(v))
                 assert diff.max() <= lr / 2, (net_name, i, k, diff.max())
                 assert np.median(diff) <= 1e-6, (net_name, i, k)
+    return [r["hit_frac"] for r in rows]
 
 
 def test_adam_update_equals_torch_adam(port_runs):
