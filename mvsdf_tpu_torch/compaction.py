@@ -37,6 +37,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from .tracing.kernels import stamp
+
 
 def compact_call_into(fn, mask, per_row_inputs: Sequence, targets: Sequence,
                       out_masks: Optional[Sequence] = None) -> Tuple:
@@ -274,19 +276,25 @@ def tile_rows(n: int) -> int:
     return max(TILE_ROWS, -(-n // MAX_TILES))
 
 
-def bounded_rows(fn, x, count, out, tile: Optional[int] = None):
+def bounded_rows(fn, x, count, out, tile: Optional[int] = None,
+                 sdf_rows: bool = False):
     """``out[s:e] = fn(x[s:e], n)`` for each tile [s, e) of the rows of
     ``x`` that starts below ``count`` (a 0-d int tensor), ``n`` being the
     tile's rows below the count; the other tiles of ``out`` keep what they
     hold. No host read under CUDA-graph capture (``run_if``), so the work
     follows the count to within a tile. ``fn`` must treat rows
-    independently. Returns ``out``."""
+    independently. With ``sdf_rows`` (``fn`` an SDF evaluation) each tile
+    that runs adds ``n`` and its e - s rows to the row counters of the
+    step's ``stamp.StepProbe``, where one is entered. Returns ``out``."""
     m = x.shape[0]
     tile = tile or tile_rows(m)
     for s in range(0, m, tile):
         e = min(s + tile, m)
 
         def body(s=s, e=e):
-            out[s:e] = fn(x[s:e], (count - s).clamp(0, e - s))
+            n = (count - s).clamp(0, e - s)
+            if sdf_rows:
+                stamp.count_rows(n, e - s, computed=e - s)
+            out[s:e] = fn(x[s:e], n)
         run_if(count > s, body)
     return out

@@ -42,6 +42,9 @@ package's capacity cascade with no host sync
 conditional nodes of the graph, recomputed in the backward as JAX's
 ``supervised_remat`` does). The per-epoch pass gathers exactly the surface
 rows instead (``compact_call_into``); both give JAX's per-row results.
+Under the traced step's ``stamp.StepProbe`` the pass stamps s1 and s2
+around the trace and counts the trace's SDF rows; with none it launches
+nothing more.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ from ..fields.sdf import full_value_and_grad, implicit_apply, sdf_apply
 from ..geometry import projections as proj
 from ..geometry.cameras import get_camera_params
 from ..parallel import shard_bounds, world_size
+from ..tracing.kernels import stamp
 from ..tracing.kernels.march_kernel import sphere_march
 from ..tracing.kernels.sdf_mlp import (pack_sdf_weights, sdf_mlp,
                                        sdf_mlp_count, sdf_mlp_xyz,
@@ -200,7 +204,8 @@ def _frozen_trace(cfg: ModelConfig, net: MVSDFNetwork, org, dirs,
         elif bounded:
             def sdf_fn(x, count):
                 return bounded_rows(lambda a, c: sdf_apply(net.implicit, a),
-                                    x, count, x.new_zeros(x.shape[0]))
+                                    x, count, x.new_zeros(x.shape[0]),
+                                    sdf_rows=True)
         else:
             def sdf_fn(x):
                 return sdf_apply(net.implicit, x)
@@ -253,8 +258,10 @@ def render_forward(cfg: ModelConfig, net: MVSDFNetwork, inputs, *,
                                device=dev)
     else:
         min_steps = None
+    stamp.mark(1)
     tr = _frozen_trace(cfg, net, org.detach(), ray_dirs.detach(),
                        object_mask, training, min_steps, mode)
+    stamp.mark(2)
     compact = bool(cfg.supervised_compact_frac)
     # JAX's tiers: the capacities of the supervised cascade over B*P rows
     caps = tuple(max(128, int(B * P * f)) for f in cfg.supervised_compact_frac)

@@ -1,4 +1,5 @@
-"""Launch counts of the trace's kernel wrappers, by name.
+"""Launch counts of the training step's kernel wrappers, by name: the
+trace's kernels and the stage stamps and row counters (``stamp.py``).
 
 Each wrapper adds one to its ``.launches`` where it launches its kernel.
 Under CUDA-graph replay the wrappers run once, at capture, and every replay
@@ -12,15 +13,18 @@ from typing import Dict
 
 
 def wrappers() -> Dict[str, object]:
-    """name -> wrapper function, for every kernel of the trace."""
+    """name -> wrapper function, for every kernel of the trace and the
+    stage stamps and counters."""
     from . import march_kernel as M
     from . import sdf_mlp as K
     from . import secant_kernel as S
+    from . import stamp as T
     return {"sdf_mlp": K.sdf_mlp, "sdf_mlp_xyz": K.sdf_mlp_xyz,
             "secant": S.secant, "sphere_march": M.sphere_march,
             "sdf_mlp_count": K.sdf_mlp_count,
             "sdf_mlp_xyz_count": K.sdf_mlp_xyz_count,
-            "secant_count": S.secant_count}
+            "secant_count": S.secant_count,
+            "stage_stamp": T.stamp, "stage_count": T.count}
 
 
 def snapshot() -> Dict[str, int]:

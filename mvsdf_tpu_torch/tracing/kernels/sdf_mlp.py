@@ -51,7 +51,7 @@ import torch
 
 from ...fields.embedder import embed_dim, positional_encoding
 from ...fields.sdf import ImplicitConfig, ImplicitNetwork, softplus100
-from . import build
+from . import build, stamp
 
 MAX_H = 512      # two warpgroups, each a 256-column wgmma
 MAX_HIDDEN = 32  # skip layers are a 32-bit mask
@@ -512,9 +512,11 @@ def sdf_mlp_count(packed: PackedSDF, pe: torch.Tensor,
 
     A CPU tensor goes through ``sdf_mlp_count_reference``; a CUDA tensor
     through the kernel (raising if it cannot run). Each kernel launch adds
-    one to ``sdf_mlp_count.launches``."""
+    one to ``sdf_mlp_count.launches``. Under a ``stamp.StepProbe`` the
+    rows it computes go to the probe's row counters."""
     if pe.dim() != 2 or pe.dtype != torch.float32:
         raise ValueError("pe must be a 2-D f32 tensor")
+    stamp.count_rows(count, pe.shape[0])
     if on_cpu(pe, "sdf_mlp_count"):
         return sdf_mlp_count_reference(packed, pe, count)
     pe = pe.contiguous()
@@ -544,10 +546,12 @@ def sdf_mlp_xyz_count(packed: PackedSDF, multires: int, x: torch.Tensor,
 
     A CPU tensor goes through ``sdf_mlp_xyz_count_reference``; a CUDA
     tensor through the kernel (raising if it cannot run). Each kernel
-    launch adds one to ``sdf_mlp_xyz_count.launches``."""
+    launch adds one to ``sdf_mlp_xyz_count.launches``; under a
+    ``stamp.StepProbe`` its rows are counted as ``sdf_mlp_count``'s."""
     if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         raise ValueError("x must be an (N, 3) f32 tensor")
     check_multires(packed, multires)
+    stamp.count_rows(count, x.shape[0])
     if on_cpu(x, "sdf_mlp_xyz_count"):
         return sdf_mlp_xyz_count_reference(packed, multires, x, count)
     x = x.contiguous()

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..sphere_trace import _secant
-from . import build
+from . import build, stamp
 from .sdf_mlp import (INT, PTR, TC_WEIGHT_ARGTYPES, PackedSDF, _count_arg,
                       check_multires, check_tensors, first_rows, on_cpu,
                       raise_on_error, sdf_mlp_xyz_reference, stream,
@@ -118,9 +118,11 @@ def secant_count(packed: PackedSDF, multires: int, n_steps: int,
 
     A CPU tensor goes through ``secant_count_reference``; a CUDA tensor
     through the kernel (raising if it cannot run). Each kernel launch adds
-    one to ``secant_count.launches``."""
+    one to ``secant_count.launches``. Under a ``stamp.StepProbe`` its
+    SDF rows, count x n_steps, go to the probe's row counters."""
     args = (org, dirs, z_lo, z_hi, s_lo, s_hi)
     _check(packed, multires, *args)
+    stamp.count_rows(count, org.shape[0], n_steps)
     if on_cpu(org, "secant_count"):
         return secant_count_reference(packed, multires, n_steps, *args,
                                       count)

@@ -87,6 +87,14 @@ def parse_args(argv=None):
                          "the first --profile_epochs epochs into this "
                          "directory")
     ap.add_argument("--profile_epochs", type=int, default=0)
+    ap.add_argument("--trace_dir", default="",
+                    help="trace the run and write DIR/spans.json at its end "
+                         "(Chrome trace-event format, on the profiler's "
+                         "clock): the trainer's host spans, each step's "
+                         "device stage times from stamps the captured step "
+                         "writes, and the trace's SDF rows a step. Off by "
+                         "default; while off the captured graph is "
+                         "unchanged")
     ap.add_argument("--pallas", action="store_true",
                     help="the no-grad trace through the hand-written SDF-MLP "
                          "kernel, with the JAX package's auto capacities "
@@ -219,7 +227,8 @@ def setup(argv=None):
 
     trainer = Trainer(cfg, scene, exp_dir, device=device,
                       profile_dir=args.profile_dir or None,
-                      profile_epochs=args.profile_epochs)
+                      profile_epochs=args.profile_epochs,
+                      trace_dir=args.trace_dir or None)
     return trainer, args
 
 

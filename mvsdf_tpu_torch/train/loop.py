@@ -44,6 +44,19 @@ events on a GPU, the host clock on the CPU): ``ms_per_step`` leaves out
 an epoch's first step (per-epoch) or the phase's capture (fused), and
 ``rays_per_s`` is a step's rays over it.
 
+Tracing (``Trainer(trace=True)``, ``trace_dir=``, the CLI's
+``--trace_dir``; ``set_tracing`` switches it): ``self.tracer``
+(``metrics.Tracer``) keeps the host spans ``plan_chunk``, ``dispatch``,
+``epoch[e]``, ``capture``, ``replay`` (the graph's launch, which blocks
+on a full launch queue), ``flush_wait`` (the wait for a chunk's metrics),
+``save`` and ``plot``, each tagged with its chunk's first epoch; the
+phase's step is captured again with its stage stamps and row counters
+(``step.CapturableStep(trace=True)``), and each step's row of them is
+copied beside its metrics and read one chunk behind with them, with no
+sync of its own. ``run`` writes them to ``trace_dir/spans.json``. With
+tracing off the spans are profiler annotations only and the captured
+graph is the untraced one.
+
 Data parallel (``parallel/``, one process a GPU): every rank loads the
 scene, draws the same host plan and the same per-step noise, and trains
 on its share of the rays; the step's all-reduce keeps the replicas equal.
@@ -68,9 +81,10 @@ from ..config import MVSDFConfig
 from ..data.scene import SceneData
 from ..device import resolve_device
 from ..parallel import barrier, rank, validate_ray_divisibility, world_size
+from ..tracing.kernels.stamp import SLOTS
 from . import checkpoints as ckpt
 from .device_data import DeviceSceneCache
-from .metrics import MetricsLogger, Throughput, annotate, profile_trace
+from .metrics import MetricsLogger, Throughput, Tracer, profile_trace
 from .step import (METRIC_KEYS, CapturableStep, adam_scalars, advance_epoch,
                    init_train_state, make_train_step, milestones)
 
@@ -100,10 +114,20 @@ class _StepClock:
         return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
 
 
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``t``, queued behind what is queued."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 class Trainer:
     def __init__(self, cfg: MVSDFConfig, scene: SceneData, exp_dir: str,
                  device=None, log_fn=print,
-                 profile_dir: Optional[str] = None, profile_epochs: int = 0):
+                 profile_dir: Optional[str] = None, profile_epochs: int = 0,
+                 trace: bool = False, trace_dir: Optional[str] = None):
+        """``trace`` (or a ``trace_dir``) turns tracing on (module
+        docstring); ``run`` writes ``trace_dir/spans.json`` at its end."""
         if cfg.train.batch_size > scene.n_images:
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} > {scene.n_images} "
@@ -137,6 +161,8 @@ class Trainer:
         self.throughput = Throughput()
         self.profile_dir = profile_dir
         self.profile_epochs = profile_epochs
+        self.tracer = Tracer()
+        self.trace_dir = trace_dir
         # wall times of the loop's other work, for whoever drives it
         self.timings = {"save_ms": [], "restore_ms": [], "mesh_ms": [],
                         "render_s": [], "capture_s": {}, "graph_bytes": {}}
@@ -146,6 +172,19 @@ class Trainer:
         self.cache = DeviceSceneCache(scene, self.device)
         self.log(f"device scene cache: {self.cache.nbytes() / 1e6:.1f} MB "
                  f"resident on {self.device}")
+        self.set_tracing(trace or bool(trace_dir))
+
+    def set_tracing(self, on: bool) -> None:
+        """Tracing on or off. The phase's graph is released, so the next
+        chunk captures the step with its stamps and counters, or without;
+        turning it on on a GPU maps the device's clock onto the host's
+        (``Tracer.calibrate``)."""
+        if on == self.tracer.on:
+            return
+        self.tracer.on = on
+        self._release_fused_steps()
+        if on:
+            self.tracer.calibrate(self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -225,7 +264,7 @@ class Trainer:
         clock = _StepClock(dev)
         n_steps = 0
         metrics = None
-        with annotate(f"epoch[{epoch}]"):
+        with self.tracer.span(f"epoch[{epoch}]"):
             for i in range(0, self.scene.n_images - B + 1, B):
                 idx = torch.from_numpy(order[i:i + B].astype(np.int64))
                 batch = self.cache.gather(idx.to(dev), sel_d)
@@ -281,7 +320,8 @@ class Trainer:
             # pools they hold, go before this one is captured
             self._release_fused_steps()
             step = CapturableStep(self.cfg, phase_idx, weights, self.state,
-                                  self.cache, self.generator)
+                                  self.cache, self.generator,
+                                  trace=self.tracer.on)
             self.fused_steps[phase_idx] = step
         elif step.weights != weights:
             raise ValueError(f"phase {phase_idx}'s weights changed within "
@@ -328,18 +368,21 @@ class Trainer:
                 raise ValueError(f"the weights of epochs {e0} and {e} differ "
                                  f"within one chunk")
         step = self._get_fused_step(phase_idx, weights)
-        plan, epochs, n_sel = self._plan_chunk(e0, e1, step)
-        with annotate(f"train_chunk[{e0}:{e1}]"):
-            chunk = self._dispatch(step, plan, epochs)
-        if chunk["capture_s"] is not None:
-            self.timings["capture_s"][phase_idx] = chunk["capture_s"]
-            self.timings["graph_bytes"][phase_idx] = step.graph_bytes
-            self.log(f"phase {phase_idx}: step captured in "
-                     f"{chunk['capture_s']:.2f} s, graph pool "
-                     f"{step.graph_bytes / 2 ** 20:.1f} MiB")
-        chunk.update(phase=phase_idx,
-                     rays=cfg.train.batch_size * n_sel)
-        self._flush_metrics()
+        span = self.tracer.span
+        with self.tracer.in_chunk(e0):
+            with span("plan_chunk", e0=e0, e1=e1):
+                plan, epochs, n_sel = self._plan_chunk(e0, e1, step)
+            with span("dispatch", e0=e0, e1=e1):
+                chunk = self._dispatch(step, plan, epochs)
+            if chunk["capture_s"] is not None:
+                self.timings["capture_s"][phase_idx] = chunk["capture_s"]
+                self.timings["graph_bytes"][phase_idx] = step.graph_bytes
+                self.log(f"phase {phase_idx}: step captured in "
+                         f"{chunk['capture_s']:.2f} s, graph pool "
+                         f"{step.graph_bytes / 2 ** 20:.1f} MiB")
+            chunk.update(phase=phase_idx,
+                         rays=cfg.train.batch_size * n_sel)
+            self._flush_metrics()
         self._pending = chunk
 
     def _dispatch(self, step: CapturableStep, plan_np: np.ndarray, epochs):
@@ -353,41 +396,52 @@ class Trainer:
         copy, a ``_StepClock`` marked around its replays (its eager steps on
         the CPU), the host seconds of this call, the capture's seconds (or
         None) and the pinned plan, which must live until its copy has
-        run."""
+        run. A tracing step's stamp and counter row is copied into row k
+        of a second buffer (``stamps``) behind its metrics, and read with
+        them; ``replay`` says which steps were replays (or eager steps on
+        the CPU) and which the capture's warm-up."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
+        span = self.tracer.span
         plan = torch.from_numpy(plan_np)
         if cuda:
             plan = plan.pin_memory()
         plan_d = plan.to(self.device, non_blocking=True)
         out = torch.empty((len(epochs), len(METRIC_KEYS)),
                           dtype=torch.float32, device=self.device)
+        stamps = None if step.probe is None else torch.empty(
+            (len(epochs), SLOTS), dtype=torch.int64, device=self.device)
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
-                 "replays": 0, "done": None, "clock": _StepClock(self.device)}
+                 "replays": 0, "done": None, "clock": _StepClock(self.device),
+                 "replay": [True] * len(epochs)}
         with contextlib.ExitStack() as spans:
             for k in range(len(epochs)):
                 if k == 0 or epochs[k] != epochs[k - 1]:
                     spans.close()
-                    spans.enter_context(annotate(f"epoch[{epochs[k]}]"))
+                    spans.enter_context(span(f"epoch[{epochs[k]}]"))
                 step.row.copy_(plan_d[k])
                 if step.graph is None and cuda:
-                    step.capture()   # step k is the warm-up
+                    with span("capture"):
+                        step.capture()   # step k is the warm-up
                     chunk["capture_s"] = step.capture_s
+                    chunk["replay"][k] = False
                 else:
                     if chunk["replays"] == 0:
                         chunk["clock"].mark()
-                    step()
+                    with span("replay", k=k):
+                        step()
                     chunk["replays"] += 1
                 out[k].copy_(step.metrics)
+                if stamps is not None:
+                    stamps[k].copy_(step.probe.buf)
         if chunk["replays"]:
             chunk["clock"].mark()
         if cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+            out = _to_pinned(out)
+            stamps = None if stamps is None else _to_pinned(stamps)
             chunk["done"] = torch.cuda.Event()
             chunk["done"].record()
-            out = host
-        chunk["out"] = out
+        chunk["out"], chunk["stamps"] = out, stamps
         chunk["host_s"] = time.perf_counter() - t0
         return chunk
 
@@ -404,7 +458,8 @@ class Trainer:
         if chunk is None:
             return
         if chunk["done"] is not None:
-            chunk["done"].synchronize()
+            with self.tracer.span("flush_wait", of=chunk["epochs"][0]):
+                chunk["done"].synchronize()
         m_np = chunk["out"].numpy()
         epochs = chunk["epochs"]
         if chunk["replays"]:
@@ -412,6 +467,10 @@ class Trainer:
         else:
             ms_step = (chunk["host_s"] - (chunk["capture_s"] or 0.0)) / \
                 len(epochs) * 1e3
+        if chunk["stamps"] is not None:
+            self.tracer.add_chunk(epochs[0], chunk["stamps"].numpy(),
+                                  chunk["replay"], ms_step *
+                                  chunk["replays"], chunk["replays"])
         ms_step = max(ms_step, 1e-6)
         self.throughput.add(chunk["rays"] * len(epochs))
         steps = epochs.count(epochs[0])
@@ -436,11 +495,12 @@ class Trainer:
 
     def save(self, epoch: int):
         t0 = time.perf_counter()
-        if self.main:
-            ckpt.save_checkpoint(self.ckpt_dir, epoch, self.state, epoch,
-                                 rng_state=self.rng.bit_generator.state,
-                                 generator=self.generator)
-        barrier()
+        with self.tracer.span("save", epoch=epoch):
+            if self.main:
+                ckpt.save_checkpoint(self.ckpt_dir, epoch, self.state, epoch,
+                                     rng_state=self.rng.bit_generator.state,
+                                     generator=self.generator)
+            barrier()
         self.timings["save_ms"].append((time.perf_counter() - t0) * 1e3)
 
     def plot(self, epoch: int, resolution: int = 100, full: bool = False,
@@ -531,7 +591,8 @@ class Trainer:
                         try:
                             # full render every 4th plot (ref :324-328)
                             full = (e // self.plot_freq) % 4 == 0
-                            self.plot(e, full=full)
+                            with self.tracer.span("plot", epoch=e):
+                                self.plot(e, full=full)
                         except Exception as exc:  # never kill training
                             self.log(f"plot failed at epoch {e}: {exc}")
                 epoch = e1 + 1
@@ -540,6 +601,8 @@ class Trainer:
                 prof.__exit__(None, None, None)
         self._flush_metrics()
         self.save(cfg.train.nepochs)
+        if self.trace_dir and self.main:
+            self.tracer.write(os.path.join(self.trace_dir, "spans.json"))
         rates = self.throughput.rates()
         peak = ""
         if self.device.type == "cuda":

@@ -1,9 +1,26 @@
-"""Observability: structured metrics logging + profiler hooks (port of
-``mvsdf_tpu/train/metrics.py``).
+"""Observability: structured metrics logging, the program's spans and the
+training step's stage stamps (port of ``mvsdf_tpu/train/metrics.py``).
 
-JSONL metrics (one line per epoch), throughput counters, and a
+JSONL metrics (one line per epoch), throughput counters, a
 ``torch.profiler`` trace (host and CUDA activities, written as a Chrome
-trace) around chosen epochs.
+trace) around chosen epochs, and ``Tracer``, the program's one span API.
+
+``Tracer.span(name, **args)`` always enters a profiler ``record_function``
+of that name, so profiles keep their names. With tracing on it also keeps
+(name, start, end, parent, chunk, args) in memory on
+``time.perf_counter_ns()``; the chunk is the first epoch of the fused
+dispatch's chunk the span ran in. The trainer (``train/loop.py``) hands
+the tracer each chunk's stage stamps and row counters as well, one row a
+step (``tracing/kernels/stamp``: the graph-replayed step stamps s0-s5 on
+the device's ``%globaltimer``). ``calibrate`` maps the device's clock
+onto the host's with one bracketed stamp; ``summary`` gives the stage
+times, the gaps between replays and across chunk boundaries, the host
+spans a step and the trace's rows; ``write`` puts all of it, converted
+once to the profiler's clock (Unix nanoseconds, shown from the same base
+time as ``profile_trace``'s ``trace.json``), into one Chrome trace-event
+file with host spans, device stages and row counters on their own tracks.
+With tracing off nothing is kept and the step captures no stamp or
+counter: its graph is the untraced one.
 """
 from __future__ import annotations
 
@@ -13,7 +30,17 @@ import time
 from contextlib import contextmanager
 from typing import Optional
 
+import numpy as np
 import torch
+
+from ..tracing.kernels import stamp as _stamp
+
+# libkineto's ChromeTraceBaseTime: the profiler's Chrome traces give times
+# from the start of the 7889238-second interval they fall in
+_KINETO_BASE_S = 7889238
+_HOST_TID, _DEVICE_TID = 1, 2
+_STAGES = (("forward", 0, 1), ("trace", 1, 2), ("forward", 2, 3),
+           ("backward", 3, 4), ("update", 4, 5))
 
 
 class MetricsLogger:
@@ -51,11 +78,237 @@ def profile_trace(log_dir: Optional[str]):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextmanager
-def annotate(name: str):
-    """Named region visible in profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
+def unix_offset_ns() -> int:
+    """``time.time_ns()`` less ``time.perf_counter_ns()``, read between two
+    reads of the latter."""
+    a = time.perf_counter_ns()
+    u = time.time_ns()
+    b = time.perf_counter_ns()
+    return u - (a + b) // 2
+
+
+def kineto_base_ns(unix_ns: int) -> int:
+    """The base time the profiler's Chrome traces count from."""
+    s = unix_ns // 10 ** 9
+    return s // _KINETO_BASE_S * _KINETO_BASE_S * 10 ** 9
+
+
+class Tracer:
+    """The program's spans and the training step's stage stamps (module
+    docstring). ``spans`` holds [name, start, end, parent, chunk, args]
+    (host ``perf_counter`` ns; parent an index into ``spans`` or None);
+    ``chunks`` one record a chunk of the fused dispatch: its first epoch,
+    its (K, ``stamp.SLOTS``) int64 stamp and counter rows, which rows are
+    replays (the rest: a capture's eager warm-up), and its ``_StepClock``
+    milliseconds over its replays. ``device_clock``: ``offset_ns`` (device
+    ns + offset = host ns), the bracket's ``width_ns``, and ``tick_ns``,
+    the step the device's clock moves in (the greatest common divisor of
+    back-to-back stamps' differences)."""
+
+    def __init__(self, on: bool = False):
+        self.on = on
+        self.spans = []
+        self.chunks = []
+        self.chunk = None
+        self.device_clock = {"offset_ns": 0, "width_ns": 0, "tick_ns": None}
+        self._open = []
+
+    @contextmanager
+    def span(self, name: str, **args):
+        """A named region: a profiler ``record_function``, and with tracing
+        on a kept span that brackets it."""
+        if not self.on:
+            with torch.profiler.record_function(name):
+                yield
+            return
+        rec = [name, time.perf_counter_ns(), None,
+               self._open[-1] if self._open else None, self.chunk, args]
+        self._open.append(len(self.spans))
+        self.spans.append(rec)
+        try:
+            with torch.profiler.record_function(name):
+                yield
+        finally:
+            self._open.pop()
+            rec[2] = time.perf_counter_ns()
+
+    @contextmanager
+    def in_chunk(self, e0: int):
+        """Spans opened inside belong to the chunk starting at epoch e0."""
+        self.chunk = e0
+        try:
+            yield
+        finally:
+            self.chunk = None
+
+    def self_ns(self):
+        """Each kept span's length less its children's (None while open)."""
+        child = [0] * len(self.spans)
+        for _, a, b, parent, _, _ in self.spans:
+            if parent is not None and b is not None:
+                child[parent] += b - a
+        return [None if b is None else b - a - c
+                for (_, a, b, _, _, _), c in zip(self.spans, child)]
+
+    def calibrate(self, device: torch.device) -> None:
+        """Map the device's stamps onto the host clock: host clock, stamp,
+        sync, host clock, the narrowest of eight brackets kept. On the CPU
+        the stamps are the host clock."""
+        if device.type != "cuda":
+            self.device_clock = {"offset_ns": 0, "width_ns": 0,
+                                 "tick_ns": None}
+            return
+        buf = torch.zeros(64, dtype=torch.int64, device=device)
+        _stamp.stamp(buf, 0)   # builds and loads the library
+        torch.cuda.synchronize(device)
+        best = None
+        for _ in range(8):
+            t0 = time.perf_counter_ns()
+            _stamp.stamp(buf, 0)
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter_ns()
+            d = int(buf[0])
+            if best is None or t1 - t0 < best[1]:
+                best = ((t0 + t1) // 2 - d, t1 - t0)
+        for i in range(64):
+            _stamp.stamp(buf, i)
+        steps = np.diff(buf.cpu().numpy())
+        self.device_clock = {"offset_ns": best[0], "width_ns": best[1],
+                             "tick_ns": int(np.gcd.reduce(steps))}
+
+    def add_chunk(self, e0: int, rows: np.ndarray, replay, clock_ms: float,
+                  replays: int) -> None:
+        """A chunk's stamp and counter rows (module docstring)."""
+        self.chunks.append({"chunk": e0, "rows": np.array(rows, np.int64),
+                            "replay": np.asarray(replay, bool),
+                            "clock_ms": clock_ms, "replays": replays})
+
+    def _host_ns(self, rows: np.ndarray) -> np.ndarray:
+        """Stamps (..., STAMPS) on the host's perf_counter clock."""
+        return rows[..., :_stamp.STAMPS] + self.device_clock["offset_ns"]
+
+    def summary(self, chunks=None) -> dict:
+        """Over the replays of the chunks whose first epochs ``chunks``
+        lists (every chunk by default), milliseconds a step: the gaps
+        between replays within a chunk (s0 of replay k+1 less s5 of k),
+        across chunk boundaries (the same from a chunk's last replay to the
+        next one's first), the host's ``replay`` and ``flush_wait`` spans,
+        and the mean stages (trace s2 - s1, forward (s1 - s0) + (s3 - s2),
+        backward s4 - s3, update s5 - s4); the trace's SDF rows computed a
+        step and the share of them asked for (ACTIVE over COMPUTED, %).
+        Besides: the stages' sum and the ``_StepClock`` ms a replay, and
+        each boundary with the span of its chunk's plan and first replay,
+        host ns."""
+        picked = [i for i, c in enumerate(self.chunks)
+                  if (chunks is None or c["chunk"] in chunks) and
+                  c["replay"].any()]
+        ids = {self.chunks[i]["chunk"] for i in picked}
+        stage = dict.fromkeys(("trace", "forward", "backward", "update"), 0)
+        gap = 0
+        boundaries = []
+        active = computed = steps = replays = 0
+        clock_ms = 0.0
+        for i in picked:
+            c = self.chunks[i]
+            rows = c["rows"][c["replay"]]
+            s = self._host_ns(rows)
+            stage["trace"] += int((s[:, 2] - s[:, 1]).sum())
+            stage["forward"] += int((s[:, 1] - s[:, 0] +
+                                     s[:, 3] - s[:, 2]).sum())
+            stage["backward"] += int((s[:, 4] - s[:, 3]).sum())
+            stage["update"] += int((s[:, 5] - s[:, 4]).sum())
+            gap += int((s[1:, 0] - s[:-1, 5]).sum())
+            prev = [p for p in self.chunks[:i] if p["replay"].any()]
+            if prev:
+                last = self._host_ns(prev[-1]["rows"][prev[-1]["replay"]])
+                boundaries.append({"chunk": c["chunk"],
+                                   "gap": [int(last[-1, 5]), int(s[0, 0])]})
+            active += int(rows[:, _stamp.ACTIVE].sum())
+            computed += int(rows[:, _stamp.COMPUTED].sum())
+            steps += len(rows)
+            clock_ms += c["clock_ms"]
+            replays += c["replays"]
+        if not steps:
+            return {}
+        host = dict.fromkeys(("replay", "flush_wait"), 0)
+        for name, a, b, _, chunk, _ in self.spans:
+            if name in host and chunk in ids and b is not None:
+                host[name] += b - a
+        for bd in boundaries:
+            mine = lambda want: [[a, b] for name, a, b, _, chunk, _
+                                 in self.spans if name == want and
+                                 chunk == bd["chunk"] and b is not None]
+            bd["plan"] = min(mine("plan_chunk"), default=None)
+            bd["first_replay"] = min(mine("replay"), default=None)
+        ms = lambda ns: ns / 1e6 / steps
+        out = {"steps": steps,
+               "chunk_boundary_ms_per_step": ms(sum(
+                   b["gap"][1] - b["gap"][0] for b in boundaries)),
+               "replay_gap_ms_per_step": ms(gap),
+               "replay_host_ms_per_step": ms(host["replay"]),
+               "flush_wait_ms_per_step": ms(host["flush_wait"])}
+        out.update({f"step_stage_ms.{k}": ms(v) for k, v in stage.items()})
+        out.update(trace_rows_per_step=computed / steps,
+                   trace_row_fill=100.0 * active / computed if computed
+                   else None,
+                   stage_sum_ms=ms(sum(stage.values())),
+                   clock_ms_per_replay=clock_ms / replays if replays
+                   else None,
+                   boundaries=boundaries)
+        return out
+
+    def write(self, path: str) -> None:
+        """Everything kept, as a Chrome trace-event file (module
+        docstring): host spans, then each replay's stages and the gaps
+        before it, then the rows a step counted; ``otherData`` holds the
+        device clock and ``summary()``."""
+        to_unix = unix_offset_ns()
+        base = kineto_base_ns(time.time_ns())
+        us = lambda host_ns: (int(host_ns) + to_unix - base) / 1e3
+        pid = os.getpid()
+        events = [{"ph": "M", "name": "process_name", "pid": pid,
+                   "args": {"name": "mvsdf_tpu_torch program trace"}}]
+        for tid, name in ((_HOST_TID, "host spans"),
+                          (_DEVICE_TID, "device stages")):
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": name}})
+        for (name, a, b, parent, chunk, args), own in zip(self.spans,
+                                                          self.self_ns()):
+            if b is None:
+                continue
+            events.append({"ph": "X", "name": name, "pid": pid,
+                           "tid": _HOST_TID, "ts": us(a), "dur": (b - a) / 1e3,
+                           "args": dict(args, chunk=chunk, parent=parent,
+                                        self_us=own / 1e3)})
+        last = None
+        for c in self.chunks:
+            s = self._host_ns(c["rows"])
+            for k in np.flatnonzero(c["replay"]):
+                args = {"chunk": c["chunk"], "k": int(k)}
+                if last is not None:
+                    events.append({
+                        "ph": "X", "name": "replay_gap" if last[0] is c
+                        else "chunk_boundary", "pid": pid, "tid": _DEVICE_TID,
+                        "ts": us(last[1]), "dur": (s[k, 0] - last[1]) / 1e3,
+                        "args": args})
+                for name, a, b in _STAGES:
+                    events.append({"ph": "X", "name": name, "pid": pid,
+                                   "tid": _DEVICE_TID, "ts": us(s[k, a]),
+                                   "dur": (s[k, b] - s[k, a]) / 1e3,
+                                   "args": args})
+                events.append({"ph": "C", "name": "trace_rows", "pid": pid,
+                               "ts": us(s[k, 0]), "args": {
+                                   "active": int(c["rows"][k, _stamp.ACTIVE]),
+                                   "computed": int(c["rows"][
+                                       k, _stamp.COMPUTED])}})
+                last = (c, s[k, 5])
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": base,
+                       "otherData": {"device_clock": self.device_clock,
+                                     "unix_offset_ns": to_unix,
+                                     "summary": self.summary()}}, f)
 
 
 class Throughput:

@@ -21,9 +21,20 @@ gradients too) and their metric terms in one all-reduce, before the clip,
 so the clip, the non-finite skip and Adam see the global gradient and its
 norm on every rank, take the same branch and keep the replicas equal.
 After a step each parameter's ``.grad`` holds the gradient Adam applied.
+
+Tracing (``CapturableStep(trace=True)``, which the trainer makes while its
+``metrics.Tracer`` is on): the step enters its ``stamp.StepProbe``, which
+stamps six points of every run into ``probe.buf`` (s0 the step's start, s1
+and s2 around the frozen trace, s3 after the loss, s4 after the gradients,
+s5 after the metrics write) and counts the rows the trace's SDF
+evaluations asked for and ran (``tracing/kernels/stamp``). A captured
+graph holds those launches, so every replay stamps and counts. With
+tracing off nothing of it is launched, and the captured graph is the one
+an untraced step captures.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -39,7 +50,7 @@ from ..fields.sdf import init_implicit
 from ..parallel import sum_, world_size
 from ..rendering.renderer import render_forward
 from ..supervision.losses import LossTerms, total_loss
-from ..tracing.kernels import counts
+from ..tracing.kernels import counts, stamp
 from ..tracing.sphere_trace import BOUNDED, GATHERED
 from .cameras_opt import (SparseAdamState, init_sparse_adam,
                           pose_vecs_from_matrices, sparse_adam_step)
@@ -137,7 +148,9 @@ def _gradients(cfg: MVSDFConfig, gates, state: TrainState,
                          generator=generator, noise=noise, mode=mode)
     lt = total_loss(out, {k: batch[k] for k in GT_KEYS}, gates,
                     cfg.schedule, weights)
+    stamp.mark(3)
     grads = torch.autograd.grad(lt.loss, params, allow_unused=True)
+    stamp.mark(4)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     # this rank's share of each metric: the terms, and its hits over the
@@ -292,9 +305,12 @@ class CapturableStep:
     addresses of the state's tensors."""
 
     def __init__(self, cfg: MVSDFConfig, phase_idx: int, weights: Weights,
-                 state: TrainState, cache, generator: torch.Generator):
+                 state: TrainState, cache, generator: torch.Generator,
+                 trace: bool = False):
         """``weights`` are the phase's (``cfg.schedule.weights`` is constant
-        within a phase): the graph holds them as constants."""
+        within a phase): the graph holds them as constants. ``trace``: the
+        step stamps its stages and counts its trace rows into
+        ``self.probe.buf`` (module docstring)."""
         self.cfg = cfg
         self.gates = cfg.schedule.gates_for_phase(phase_idx)
         self.weights = weights
@@ -315,6 +331,7 @@ class CapturableStep:
         if group["weight_decay"] or group["amsgrad"] or group["maximize"]:
             raise ValueError("the capturable step is Adam without weight "
                              "decay, amsgrad or maximize")
+        self.probe = stamp.StepProbe(dev) if trace else None
         self.graph = None
         self.bodies = None
         self.launches = {}
@@ -329,7 +346,12 @@ class CapturableStep:
                                np.asarray(sel, np.int32), adam])
 
     def eager(self):
-        """The step from ``self.row``, run eagerly (no graph)."""
+        """The step from ``self.row``, run eagerly (no graph); inside the
+        step's probe when it traces."""
+        with self.probe or contextlib.nullcontext():
+            self._eager()
+
+    def _eager(self):
         B, P = self.B, self.P
         row = self.row
         indices = row[:B].long()

@@ -120,11 +120,13 @@ def _rows(exp_dir):
 
 @pytest.fixture(scope="module")
 def straight(env):
-    """4 epochs (0..4) straight through the CLI, the first one profiled."""
+    """4 epochs (0..4) straight through the CLI, the first one profiled,
+    all of them traced."""
     exps = env["root"] / "exps"
     out = _run_cli(_cli_args(env, "straight", exps, "--profile_dir",
                              str(env["root"] / "profile"),
-                             "--profile_epochs", "1"))
+                             "--profile_epochs", "1", "--trace_dir",
+                             str(env["root"] / "spans")))
     return _exp_dir(exps, "straight"), out
 
 
@@ -153,11 +155,42 @@ def test_cli_trains_a_scene_directory(env, straight):
     assert "epoch[0]" in trace and "epoch[1]" not in trace
 
 
+def test_cli_trace_dir_writes_spans(env, straight):
+    """--trace_dir: a Chrome trace-event file of the trainer's host spans,
+    each step's device stages and its trace rows, on the profiler's time
+    axis."""
+    with open(env["root"] / "spans" / "spans.json") as f:
+        spans = json.load(f)
+    with open(env["root"] / "profile" / "trace.json") as f:
+        prof = json.load(f)
+    assert spans["baseTimeNanoseconds"] == prof["baseTimeNanoseconds"]
+    events = spans["traceEvents"]
+    threads = {e["args"]["name"]: e["tid"] for e in events
+               if e["name"] == "thread_name"}
+    host = {e["name"] for e in events if e.get("tid") == threads[
+        "host spans"]}
+    assert {"plan_chunk", "dispatch", "replay", "save", "plot"} <= host
+    stages = [e for e in events if e.get("tid") == threads["device stages"]]
+    assert {e["name"] for e in stages} >= {"forward", "trace", "backward",
+                                           "update", "chunk_boundary"}
+    # 5 epochs of one step each
+    assert sum(e["name"] == "trace" for e in stages) == 5
+    rows = [e for e in events if e["name"] == "trace_rows"]
+    assert len(rows) == 5 and all(e["args"]["active"] > 0 for e in rows)
+    assert spans["otherData"]["summary"]["steps"] == 5
+    # the profiled epoch's plan span sits where the profiler saw it
+    (p,) = [e for e in prof["traceEvents"] if e.get("name") == "plan_chunk"]
+    (o,) = [e for e in events if e["name"] == "plan_chunk" and
+            e["args"]["chunk"] == 0]
+    assert o["ts"] <= p["ts"] and p["ts"] + p["dur"] <= o["ts"] + o["dur"]
+
+
 def test_resume_after_two_epochs_is_bit_exact(env, straight):
     """The state after epoch 2 (as a run stopped there left it), resumed
     with --is_continue, trains epochs 3-4 to the bits of the straight
     run: parameters, Adam's moments and step, the scheduler, both RNGs and
-    every metric (and the straight run's profiler changed none of them)."""
+    every metric (and the straight run's profiler and tracing changed
+    none of them)."""
     exp_dir, _ = straight
     exps = env["root"] / "exps_resumed"
     resumed = os.path.join(str(exps), "resumed", os.path.basename(exp_dir))
