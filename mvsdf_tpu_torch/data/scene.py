@@ -239,13 +239,18 @@ class SceneData:
             _, poses[i] = decompose_projection(P[:3, :4])
         return poses
 
-    def change_sampling_idx(self, n: int, rng: np.random.Generator):
-        """One random pixel subset per epoch shared by all images
-        (ref :244-248)."""
+    def draw_sampling_idx(self, n: int, rng: np.random.Generator):
+        """One epoch's random pixel subset shared by all images (ref
+        :244-248), or None for every pixel (n == -1); reads nothing of the
+        scene but its pixel count, so the trainer's draw-ahead thread may
+        call it."""
         if n == -1:
-            self.sampling_idx = None
-        else:
-            self.sampling_idx = rng.permutation(self.total_pixels)[:n]
+            return None
+        return rng.permutation(self.total_pixels)[:n].copy()
+
+    def change_sampling_idx(self, n: int, rng: np.random.Generator):
+        """Draw the next epoch's pixel subset into ``sampling_idx``."""
+        self.sampling_idx = self.draw_sampling_idx(n, rng)
 
     def src_indices(self, idx: int):
         img_id = self.pair["id_list"][idx]

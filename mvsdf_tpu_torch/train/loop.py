@@ -21,12 +21,21 @@ Two paths, as in the JAX package:
   default, with one process): the counterpart of the JAX package's
   ``lax.scan`` over a chunk of up to ``epochs_per_dispatch`` epochs. Each
   phase gets one ``step.CapturableStep``, captured into a CUDA graph at
-  its first chunk (after any resume) and replayed step after step. A
-  chunk's host plan (the pixel subset, then the image order, each epoch,
-  in the per-epoch path's stream order, and Adam's scalars) is drawn
-  first and uploaded in one copy; before each replay the step's row is
-  copied into the graph's static input on the device. No replay waits on
-  the host. Each replay's metrics go into the chunk's buffer, read one
+  its first chunk (after any resume) and replayed step after step. The
+  host RNG's draws of a chunk (each epoch's pixel subset, then its image
+  order, in the per-epoch path's stream order) are made one chunk ahead
+  on the trainer's one worker thread (``_draw_ahead``): once a chunk is
+  planned, and before its replays are queued, the worker draws the
+  epochs the next chunk can take, up to the first save epoch (its
+  checkpoint holds the RNG's state after it, and its plot draws from the
+  RNG next), while the main thread dispatches. A chunk's host plan (those
+  draws, taken in epoch order and made in place where none were drawn
+  ahead, and Adam's scalars) is uploaded in one copy; before each replay
+  the step's row is copied into the graph's static input on the device.
+  No replay waits on the host. Every other user of the RNG (``save``,
+  ``plot``, ``train_epoch``, ``maybe_resume``) first waits for the
+  worker, and a resume drops what it drew. Each replay's metrics go into
+  the chunk's buffer, read one
   chunk behind (after the next chunk is queued); each epoch logs its last
   step, and ``rays_per_s`` and ``ms_per_step`` are the chunk's. A phase's
   graph is dropped when the next phase's is made. A chunk
@@ -46,10 +55,13 @@ an epoch's first step (per-epoch) or the phase's capture (fused), and
 
 Tracing (``Trainer(trace=True)``, ``trace_dir=``, the CLI's
 ``--trace_dir``; ``set_tracing`` switches it): ``self.tracer``
-(``metrics.Tracer``) keeps the host spans ``plan_chunk``, ``dispatch``,
-``epoch[e]``, ``capture``, ``replay`` (the graph's launch, which blocks
-on a full launch queue), ``flush_wait`` (the wait for a chunk's metrics),
-``save`` and ``plot``, each tagged with its chunk's first epoch; the
+(``metrics.Tracer``) keeps the host spans ``plan_chunk``, ``plan_wait``
+(the plan's wait for the worker's draws), ``dispatch``, ``epoch[e]``,
+``capture``, ``replay`` (the graph's launch, which blocks on a full
+launch queue), ``flush_wait`` (the wait for a chunk's metrics), ``save``
+and ``plot``, each tagged with its chunk's first epoch, the worker's
+``draw_ahead`` (tagged with the chunk it ran beside) and each plan's
+epochs drawn ahead (``Tracer.add_plan``); the
 phase's step is captured again with its stage stamps and row counters
 (``step.CapturableStep(trace=True)``), and each step's row of them is
 copied beside its metrics and read one chunk behind with them, with no
@@ -72,6 +84,7 @@ import contextlib
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -121,6 +134,19 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def _draw_epochs(scene: SceneData, rng: np.random.Generator,
+                 num_pixels: int, epochs):
+    """Each of ``epochs``' host draws, in the per-epoch path's stream
+    order: the pixel subset (None: every pixel), then the image order. Runs
+    on the trainer's worker thread or in place; returns the (epoch,
+    subset, order) triples and the ``perf_counter_ns`` pair it ran
+    between."""
+    t0 = time.perf_counter_ns()
+    draws = [(e, scene.draw_sampling_idx(num_pixels, rng),
+              rng.permutation(scene.n_images)) for e in epochs]
+    return draws, (t0, time.perf_counter_ns())
+
+
 class Trainer:
     def __init__(self, cfg: MVSDFConfig, scene: SceneData, exp_dir: str,
                  device=None, log_fn=print,
@@ -168,6 +194,13 @@ class Trainer:
                         "render_s": [], "capture_s": {}, "graph_bytes": {}}
         # the fused path's chunk whose metrics are not read yet
         self._pending = None
+        # the host RNG's draws made ahead of their plan (module docstring):
+        # the worker's job (its future and the chunk it was started in),
+        # and the (epoch, subset, order) triples it drew, in stream order
+        self._draw_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="draw_ahead")
+        self._ahead = None
+        self._drawn = collections.deque()
         self.last_render = None   # (epoch, image index, rgb (1, HW, 3))
         self.cache = DeviceSceneCache(scene, self.device)
         self.log(f"device scene cache: {self.cache.nbytes() / 1e6:.1f} MB "
@@ -198,6 +231,9 @@ class Trainer:
         if step is None:
             return False
         t0 = time.perf_counter()
+        # the checkpoint's RNG state replaces what was drawn ahead from it
+        self._join_draws()
+        self._drawn.clear()
         epoch, rng_state = ckpt.restore_checkpoint(self.ckpt_dir, step,
                                                    self.state)
         if self.cfg.train.train_cameras and self.state.pose_vecs is None:
@@ -251,12 +287,10 @@ class Trainer:
         w = cfg.schedule.weights(tp)
         dev = self.device
         B = cfg.train.batch_size
-        self.scene.change_sampling_idx(cfg.train.num_pixels, self.rng)
-        sel = self.scene.sampling_idx
+        ((_, sel, order),), _ = self._take_draws(epoch, epoch)
         if sel is None:
             sel = np.arange(self.scene.total_pixels)
         sel_d = torch.from_numpy(sel.astype(np.int64)).to(dev)
-        order = self.rng.permutation(self.scene.n_images)
 
         # ms_per_step: the steps after the first (which pays for first
         # calls), on the device's clock (CUDA events) as the fused path's,
@@ -294,7 +328,7 @@ class Trainer:
         e = e0
         cap = e0 + self._dispatch_epochs() - 1
         while e < min(cap, nepochs):
-            if e % self.plot_freq == 0 and e != 0:
+            if self._is_save_epoch(e):
                 break
             nxt = e + 1
             if cfg.schedule.phase_index(nxt / nepochs) != phase0:
@@ -307,6 +341,70 @@ class Trainer:
         more than plot_freq + 1 (the longest chunk a save epoch allows)."""
         return max(1, min(self.cfg.train.epochs_per_dispatch,
                           self.plot_freq + 1))
+
+    def _is_save_epoch(self, e: int) -> bool:
+        """A checkpoint and a plot follow epoch e."""
+        return e % self.plot_freq == 0 and e != 0
+
+    def _draw_ahead(self, e1: int) -> None:
+        """Start the worker on the draws the chunk after e1 can take (module
+        docstring): the epochs after those drawn, to e1 +
+        ``_dispatch_epochs()`` and nepochs, ending at the first save epoch
+        from e1 on; none where e1 is one."""
+        self._join_draws()
+        last = min(e1 + self._dispatch_epochs(), self.cfg.train.nepochs)
+        last = next((e for e in range(e1, last) if self._is_save_epoch(e)),
+                    last)
+        first = self._drawn[-1][0] + 1 if self._drawn else e1 + 1
+        if first <= last:
+            self._ahead = (self._draw_pool.submit(
+                _draw_epochs, self.scene, self.rng, self.cfg.train.num_pixels,
+                range(first, last + 1)), self.tracer.chunk)
+
+    def _join_draws(self) -> int:
+        """Wait for the worker's job, if one was started, and queue its
+        draws (its ``draw_ahead`` span kept); returns how many of them were
+        not drawn yet when asked (the wait inside ``plan_wait``)."""
+        if self._ahead is None:
+            return 0
+        future, chunk = self._ahead
+        self._ahead = None
+        late = not future.done()
+        with self.tracer.span("plan_wait") if late else \
+                contextlib.nullcontext():
+            draws, (a, b) = future.result()
+        self.tracer.add_span("draw_ahead", a, b, chunk, e0=draws[0][0],
+                             e1=draws[-1][0])
+        self._drawn.extend(draws)
+        return len(draws) if late else 0
+
+    def _take_draws(self, e0: int, e1: int):
+        """Epochs [e0, e1]'s (epoch, subset, order) triples: those drawn
+        ahead, which must start at e0, then the rest drawn in place; the
+        scene's ``sampling_idx`` is left at the last subset. Returns them
+        and how many were drawn before they were asked for."""
+        late = self._join_draws()
+        queued = len(self._drawn)
+        if queued and self._drawn[0][0] != e0:
+            raise ValueError(
+                f"epochs {e0}-{e1} asked for, but the host RNG's next draws "
+                f"are epoch {self._drawn[0][0]}'s")
+        draws = [self._drawn.popleft()
+                 for _ in range(min(queued, e1 + 1 - e0))]
+        ready = min(len(draws), queued - late)
+        draws += _draw_epochs(self.scene, self.rng, self.cfg.train.num_pixels,
+                              range(e0 + len(draws), e1 + 1))[0]
+        self.scene.sampling_idx = draws[-1][1]
+        return draws, ready
+
+    def _settle_draws(self, what: str) -> None:
+        """Before ``what`` reads or draws from the host RNG: the worker's
+        job joined, and nothing drawn ahead of it."""
+        self._join_draws()
+        if self._drawn:
+            raise ValueError(
+                f"{what}: epochs {self._drawn[0][0]}-{self._drawn[-1][0]} "
+                f"were drawn ahead from the host RNG")
 
     def _release_fused_steps(self):
         for step in self.fused_steps.values():
@@ -329,19 +427,19 @@ class Trainer:
         return step
 
     def _plan_chunk(self, e0: int, e1: int, step: CapturableStep):
-        """The host plan of epochs [e0, e1], drawn in the per-epoch path's
-        stream order, as (K, row) int32; the schedule and Adam's step
-        count move on as the steps will."""
+        """The host plan of epochs [e0, e1] as (K, row) int32: their draws
+        in the per-epoch path's stream order (``_take_draws``: those the
+        worker drew ahead, which must start at e0, then the rest in place);
+        the schedule and Adam's step count move on as the steps will."""
         cfg = self.cfg
         B = cfg.train.batch_size
         opt = self.state.optimizer
+        draws, ready = self._take_draws(e0, e1)
+        self.tracer.add_plan(ready, len(draws))
         rows, epochs = [], []
-        for epoch in range(e0, e1 + 1):
-            self.scene.change_sampling_idx(cfg.train.num_pixels, self.rng)
-            sel = self.scene.sampling_idx
+        for epoch, sel, order in draws:
             if sel is None:
                 sel = np.arange(self.scene.total_pixels)
-            order = self.rng.permutation(self.scene.n_images)
             for i in range(0, self.scene.n_images - B + 1, B):
                 t = int(step.adam[0][2]) + 1
                 for _, _, st in step.adam:
@@ -372,6 +470,7 @@ class Trainer:
         with self.tracer.in_chunk(e0):
             with span("plan_chunk", e0=e0, e1=e1):
                 plan, epochs, n_sel = self._plan_chunk(e0, e1, step)
+            self._draw_ahead(e1)
             with span("dispatch", e0=e0, e1=e1):
                 chunk = self._dispatch(step, plan, epochs)
             if chunk["capture_s"] is not None:
@@ -494,6 +593,7 @@ class Trainer:
             f"rays/s={rays_per_s:.0f}")
 
     def save(self, epoch: int):
+        self._settle_draws(f"the checkpoint of epoch {epoch}")
         t0 = time.perf_counter()
         with self.tracer.span("save", epoch=epoch):
             if self.main:
@@ -519,6 +619,8 @@ class Trainer:
         from ..fields.sdf import sdf_apply
         from ..rendering.renderer import render_view
 
+        if full:
+            self._settle_draws(f"the full render of epoch {epoch}")
         idx = int(self.rng.integers(self.scene.n_images)) if full else None
         if not self.main:
             return
@@ -585,7 +687,7 @@ class Trainer:
                         prof.__exit__(None, None, None)
                         prof = None
                 for e in range(epoch, e1 + 1):
-                    if e % self.plot_freq == 0 and e != 0:
+                    if self._is_save_epoch(e):
                         self._flush_metrics()
                         self.save(e)
                         try:

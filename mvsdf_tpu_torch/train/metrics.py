@@ -9,16 +9,21 @@ trace) around chosen epochs, and ``Tracer``, the program's one span API.
 of that name, so profiles keep their names. With tracing on it also keeps
 (name, start, end, parent, chunk, args) in memory on
 ``time.perf_counter_ns()``; the chunk is the first epoch of the fused
-dispatch's chunk the span ran in. The trainer (``train/loop.py``) hands
-the tracer each chunk's stage stamps and row counters as well, one row a
-step (``tracing/kernels/stamp``: the graph-replayed step stamps s0-s5 on
-the device's ``%globaltimer``). ``calibrate`` maps the device's clock
-onto the host's with one bracketed stamp; ``summary`` gives the stage
-times, the gaps between replays and across chunk boundaries, the host
-spans a step and the trace's rows; ``write`` puts all of it, converted
-once to the profiler's clock (Unix nanoseconds, shown from the same base
-time as ``profile_trace``'s ``trace.json``), into one Chrome trace-event
-file with host spans, device stages and row counters on their own tracks.
+dispatch's chunk the span ran in. Spans are opened on the main thread
+only; a span timed on another thread (the trainer's worker, which draws
+the host RNG's next chunk ahead) is handed over finished
+(``add_span``). The trainer (``train/loop.py``) hands the tracer each
+chunk's stage stamps and row counters as well, one row a step
+(``tracing/kernels/stamp``: the graph-replayed step stamps s0-s5 on the
+device's ``%globaltimer``), and each plan's count of epochs drawn ahead
+(``add_plan``). ``calibrate`` maps the device's clock onto the host's
+with one bracketed stamp; ``summary`` gives the stage times, the gaps
+between replays and across chunk boundaries, the host spans a step, the
+share of epochs drawn ahead and the trace's rows; ``write`` puts all of
+it, converted once to the profiler's clock (Unix nanoseconds, shown from
+the same base time as ``profile_trace``'s ``trace.json``), into one
+Chrome trace-event file with host spans, the worker's spans, device
+stages and row counters on their own tracks.
 With tracing off nothing is kept and the step captures no stamp or
 counter: its graph is the untraced one.
 """
@@ -38,7 +43,7 @@ from ..tracing.kernels import stamp as _stamp
 # libkineto's ChromeTraceBaseTime: the profiler's Chrome traces give times
 # from the start of the 7889238-second interval they fall in
 _KINETO_BASE_S = 7889238
-_HOST_TID, _DEVICE_TID = 1, 2
+_HOST_TID, _DEVICE_TID, _WORKER_TID = 1, 2, 3
 _STAGES = (("forward", 0, 1), ("trace", 1, 2), ("forward", 2, 3),
            ("backward", 3, 4), ("update", 4, 5))
 
@@ -100,7 +105,10 @@ class Tracer:
     ``chunks`` one record a chunk of the fused dispatch: its first epoch,
     its (K, ``stamp.SLOTS``) int64 stamp and counter rows, which rows are
     replays (the rest: a capture's eager warm-up), and its ``_StepClock``
-    milliseconds over its replays. ``device_clock``: ``offset_ns`` (device
+    milliseconds over its replays; ``plans`` one record a plan: its
+    chunk, its epochs and how many of them were drawn ahead;
+    ``worker_spans`` the indices of spans timed on another thread.
+    ``device_clock``: ``offset_ns`` (device
     ns + offset = host ns), the bracket's ``width_ns``, and ``tick_ns``,
     the step the device's clock moves in (the greatest common divisor of
     back-to-back stamps' differences)."""
@@ -109,6 +117,8 @@ class Tracer:
         self.on = on
         self.spans = []
         self.chunks = []
+        self.plans = []
+        self.worker_spans = set()
         self.chunk = None
         self.device_clock = {"offset_ns": 0, "width_ns": 0, "tick_ns": None}
         self._open = []
@@ -131,6 +141,21 @@ class Tracer:
         finally:
             self._open.pop()
             rec[2] = time.perf_counter_ns()
+
+    def add_span(self, name: str, start_ns: int, end_ns: int, chunk,
+                 **args) -> None:
+        """A span timed on another thread (``perf_counter_ns``), kept with
+        no parent on the worker's track; ``_open`` is the main thread's."""
+        if self.on:
+            self.worker_spans.add(len(self.spans))
+            self.spans.append([name, start_ns, end_ns, None, chunk, args])
+
+    def add_plan(self, ahead: int, epochs: int) -> None:
+        """A plan of ``epochs`` epochs in the current chunk, ``ahead`` of
+        whose draws were ready when it asked."""
+        if self.on:
+            self.plans.append({"chunk": self.chunk, "epochs": epochs,
+                               "ahead": ahead})
 
     @contextmanager
     def in_chunk(self, e0: int):
@@ -196,9 +221,10 @@ class Tracer:
         and the mean stages (trace s2 - s1, forward (s1 - s0) + (s3 - s2),
         backward s4 - s3, update s5 - s4); the trace's SDF rows computed a
         step and the share of them asked for (ACTIVE over COMPUTED, %).
-        Besides: the stages' sum and the ``_StepClock`` ms a replay, and
-        each boundary with the span of its chunk's plan and first replay,
-        host ns."""
+        Besides: the stages' sum and the ``_StepClock`` ms a replay, the
+        ``plan_wait`` span a step, the share of the chunks' planned epochs
+        whose draws were ready when asked, and each boundary with the
+        spans of its chunk's plan, plan wait and first replay, host ns."""
         picked = [i for i, c in enumerate(self.chunks)
                   if (chunks is None or c["chunk"] in chunks) and
                   c["replay"].any()]
@@ -230,7 +256,7 @@ class Tracer:
             replays += c["replays"]
         if not steps:
             return {}
-        host = dict.fromkeys(("replay", "flush_wait"), 0)
+        host = dict.fromkeys(("replay", "flush_wait", "plan_wait"), 0)
         for name, a, b, _, chunk, _ in self.spans:
             if name in host and chunk in ids and b is not None:
                 host[name] += b - a
@@ -239,6 +265,7 @@ class Tracer:
                                  in self.spans if name == want and
                                  chunk == bd["chunk"] and b is not None]
             bd["plan"] = min(mine("plan_chunk"), default=None)
+            bd["plan_wait"] = min(mine("plan_wait"), default=None)
             bd["first_replay"] = min(mine("replay"), default=None)
         ms = lambda ns: ns / 1e6 / steps
         out = {"steps": steps,
@@ -246,9 +273,14 @@ class Tracer:
                    b["gap"][1] - b["gap"][0] for b in boundaries)),
                "replay_gap_ms_per_step": ms(gap),
                "replay_host_ms_per_step": ms(host["replay"]),
-               "flush_wait_ms_per_step": ms(host["flush_wait"])}
+               "flush_wait_ms_per_step": ms(host["flush_wait"]),
+               "plan_wait_ms_per_step": ms(host["plan_wait"])}
         out.update({f"step_stage_ms.{k}": ms(v) for k, v in stage.items()})
-        out.update(trace_rows_per_step=computed / steps,
+        planned = [p for p in self.plans if p["chunk"] in ids]
+        n_planned = sum(p["epochs"] for p in planned)
+        out.update(plan_drawn_ahead_share=sum(p["ahead"] for p in planned) /
+                   n_planned if n_planned else None,
+                   trace_rows_per_step=computed / steps,
                    trace_row_fill=100.0 * active / computed if computed
                    else None,
                    stage_sum_ms=ms(sum(stage.values())),
@@ -269,15 +301,17 @@ class Tracer:
         events = [{"ph": "M", "name": "process_name", "pid": pid,
                    "args": {"name": "mvsdf_tpu_torch program trace"}}]
         for tid, name in ((_HOST_TID, "host spans"),
-                          (_DEVICE_TID, "device stages")):
+                          (_DEVICE_TID, "device stages"),
+                          (_WORKER_TID, "host worker")):
             events.append({"ph": "M", "name": "thread_name", "pid": pid,
                            "tid": tid, "args": {"name": name}})
-        for (name, a, b, parent, chunk, args), own in zip(self.spans,
-                                                          self.self_ns()):
+        for i, ((name, a, b, parent, chunk, args), own) in enumerate(
+                zip(self.spans, self.self_ns())):
             if b is None:
                 continue
+            tid = _WORKER_TID if i in self.worker_spans else _HOST_TID
             events.append({"ph": "X", "name": name, "pid": pid,
-                           "tid": _HOST_TID, "ts": us(a), "dur": (b - a) / 1e3,
+                           "tid": tid, "ts": us(a), "dur": (b - a) / 1e3,
                            "args": dict(args, chunk=chunk, parent=parent,
                                         self_us=own / 1e3)})
         last = None

@@ -16,11 +16,13 @@ reads; one traced step on the batch the plain reference trace counts;
 tracing off, one chunk (the untraced step captured anew) and ``--chunks``
 untraced chunks. Prints one JSON line: the trace's summary
 (``Tracer.summary``: the chunk boundaries', the gaps between replays',
-the host's replay and flush-wait milliseconds a step, the four stage
-times, the trace's SDF rows a step and their fill), the stages' sum
-against the trainer's CUDA-event milliseconds a replay, the device
-clock's offset, bracket and step, each chunk boundary beside its chunk's
-plan and first replay on the host's clock, the same-batch step's rows
+the host's replay, flush-wait and plan-wait milliseconds a step, the
+share of planned epochs whose draws the trainer's worker had made ahead,
+the four stage times, the trace's SDF rows a step and their fill), the
+stages' sum against the trainer's CUDA-event milliseconds a replay, the
+device clock's offset, bracket and step, each chunk boundary beside its
+chunk's plan, plan wait and first replay on the host's clock, the
+same-batch step's rows
 beside the reference's, and the traced chunks' rays/s against the
 window's and against the untraced chunks' around them, and their device
 ms a replay (CUDA events) against the untraced chunks': what tracing
@@ -42,14 +44,19 @@ sys.path.insert(0, REPO)
 
 def boundary_checks(summary: dict) -> list:
     """Each chunk boundary's device gap beside the host spans of its
-    chunk's plan and first replay (host ns): whether the gap lies between
-    the plan's start and the replay's end, and the margins in ms."""
+    chunk's plan, plan wait (0 where the plan did not wait for the
+    worker's draws) and first replay (host ns): whether the gap lies
+    between the plan's start and the replay's end, and the margins in
+    ms."""
     out = []
     for b in summary.get("boundaries", []):
         (g0, g1), plan, rep = b["gap"], b["plan"], b["first_replay"]
         if plan is None or rep is None:
             continue
+        wait = b["plan_wait"]
         out.append({"chunk": b["chunk"], "gap_ms": (g1 - g0) / 1e6,
+                    "plan_wait_ms": 0.0 if wait is None else
+                    (wait[1] - wait[0]) / 1e6,
                     "after_plan_start_ms": (g0 - plan[0]) / 1e6,
                     "before_replay_end_ms": (rep[1] - g1) / 1e6,
                     "inside": plan[0] <= g0 and g1 <= rep[1]})

@@ -21,7 +21,16 @@ scene).
   lr within rtol 1e-6, and the final parameters within its Adam-step
   bounds (each entry lr / 2, the median 1e-6).
 - A fused run resumed from its epoch-3 checkpoint ends with the full
-  run's parameters, to the bit.
+  run's parameters, to the bit; so does one of 24 epochs (a save every 8)
+  resumed from epoch 8 while the worker was drawing ahead, and the resumed
+  plan is the full run's, row for row.
+- The trainer's draws ahead (its worker draws the next chunk's pixel
+  subsets and image orders while a chunk runs): over save epochs and
+  phase changes, the plan rows and every checkpoint's host RNG state of a
+  run equal those of the same run with every draw made in place, and the
+  share of epochs drawn ahead is the one the chunk ends give;
+  ``_plan_chunk`` asked directly for the next epoch takes its draws, and
+  asked for another, raises.
 - The CLI runs chunks by default and ``train_epoch`` under ``--no_fused``.
 
 The port's training runs in subprocesses: a torch optimizer step changes
@@ -58,7 +67,7 @@ METRICS = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
 
 
 def _cfg(nepochs=5, fused=True, epochs_per_dispatch=16, num_pixels=32,
-         supervised_compact_frac=()):
+         supervised_compact_frac=(), plot_freq=1.0 / 12.0):
     """The port's counterpart of the JAX test's ``_cfg``."""
     return tc.MVSDFConfig(
         model=tc.ModelConfig(
@@ -72,7 +81,8 @@ def _cfg(nepochs=5, fused=True, epochs_per_dispatch=16, num_pixels=32,
         train=tc.TrainConfig(batch_size=2, num_pixels=num_pixels,
                              nepochs=nepochs,
                              fused_dispatch=fused,
-                             epochs_per_dispatch=epochs_per_dispatch))
+                             epochs_per_dispatch=epochs_per_dispatch,
+                             plot_freq=plot_freq))
 
 
 RUN = r"""
@@ -87,9 +97,9 @@ torch.set_num_threads(2)
 sd = SceneData(scene_dir, allow_random_features=True, device="cpu")
 
 
-def trainer(tag, cfg):
+def trainer(tag, cfg, trace=False):
     t = Trainer(cfg, sd, os.path.join(out, tag), device="cpu",
-                log_fn=lambda *a: None)
+                log_fn=lambda *a: None, trace=trace)
 
     def plot(epoch, full=False, **kw):   # the full render's view draw only
         if full:
@@ -119,12 +129,52 @@ for tag in ("ref", "fused"):
     t.run(resume=False)
     res[tag] = params(t)
     res[tag + "_rng"] = json.dumps(t.rng.bit_generator.state)
-# a fused run of 6 epochs (a checkpoint every epoch), and the same run
-# resumed from its epoch-3 checkpoint
-full = trainer("full", cfgs["full"])
-full.run(resume=False)
-half = trainer("full", cfgs["full"])
-half.run(resume=True, resume_step=3)
+
+
+def recorded(t):   # [(epoch, row)] of t's plans, as they are made
+    rows = []
+    inner = t._plan_chunk
+
+    def record(e0, e1, step):
+        plan, epochs, n_sel = inner(e0, e1, step)
+        rows.extend(zip(epochs, plan))
+        return plan, epochs, n_sel
+    t._plan_chunk = record
+    return rows
+
+
+# each fused run with every host draw made in place (the worker never
+# started), then as the trainer runs it; then resumed from a checkpoint
+# after one chunk, the worker started on the next chunk's draws
+for tag, at in (("full", 3), ("ahead3", 8), ("ahead16", None)):
+    for arm in ("in_place", "ahead"):
+        t = trainer(f"{tag}_{arm}", cfgs[tag], trace=True)
+        if arm == "in_place":
+            t._draw_ahead = lambda e1: None
+        rows = recorded(t)
+        t.run(resume=False)
+        res[f"{tag}_{arm}_epochs"] = np.array([e for e, _ in rows])
+        res[f"{tag}_{arm}_plan"] = np.stack([r for _, r in rows])
+        ckpts = sorted(os.listdir(t.ckpt_dir))
+        res[f"{tag}_{arm}_rngs"] = json.dumps({
+            s: json.load(open(os.path.join(t.ckpt_dir, s, "rng.json")))[
+                "np_rng"] for s in ckpts if s.startswith("step_")})
+        res[f"{tag}_{arm}_share"] = t.tracer.summary()[
+            "plan_drawn_ahead_share"]
+        res[f"{tag}_{arm}"] = params(t)
+    if at is None:
+        continue
+    half = trainer(f"{tag}_ahead", cfgs[tag])
+    rows = recorded(half)
+    half._train_chunk(0, half._chunk_end(0))
+    half._flush_metrics()
+    started = half._ahead is not None
+    half.maybe_resume(at)
+    res[f"{tag}_dropped"] = started and half._ahead is None and \
+        not half._drawn
+    half.run(resume=False)
+    res[f"{tag}_resumed"] = params(half)
+    res[f"{tag}_resumed_plan"] = np.stack([r for e, r in rows if e > at])
 # the capturable step's Adam against torch.optim.Adam on the CPU
 from mvsdf_tpu_torch.train.step import adam_scalars, adam_update
 g = torch.Generator().manual_seed(0)
@@ -142,8 +192,7 @@ for t in range(1, 7):
     adam_update(got, gs, state, step_neg, bc2, (0.9, 0.999), 1e-8)
 adam_equal = all(torch.equal(a.detach(), b) for a, b in zip(ref, got))
 np.savez(os.path.join(out, "port.npz"), plan=np.concatenate(plan),
-         full=params(full), resumed=params(half), adam_equal=adam_equal,
-         **res)
+         adam_equal=adam_equal, **res)
 """
 
 
@@ -159,7 +208,12 @@ def port_runs(scene_dir, tmp_path_factory):
     with open(out / "cfgs.pkl", "wb") as f:
         pickle.dump({"ref": _cfg(fused=False),
                      "fused": _cfg(fused=True, epochs_per_dispatch=3),
-                     "full": _cfg(nepochs=6, epochs_per_dispatch=2)}, f)
+                     "full": _cfg(nepochs=6, epochs_per_dispatch=2),
+                     # 24 epochs, a save every 8, phases from 4 and 12
+                     "ahead3": _cfg(nepochs=24, epochs_per_dispatch=3,
+                                    plot_freq=1 / 3),
+                     "ahead16": _cfg(nepochs=24, epochs_per_dispatch=16,
+                                     plot_freq=1 / 3)}, f)
     res = subprocess.run(
         [sys.executable, "-c", RUN, scene_dir, str(out)], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"),
@@ -394,9 +448,81 @@ def test_adam_update_equals_torch_adam(port_runs):
     assert bool(res["adam_equal"])
 
 
-def test_fused_resume_equals_the_full_run(port_runs):
+@pytest.mark.parametrize("tag,at", [("full", 3), ("ahead3", 8)],
+                         ids=["save_every_epoch", "drawn_ahead"])
+def test_fused_resume_equals_the_full_run(port_runs, tag, at):
+    """Resumed after one chunk of a fresh trainer, whose worker was then
+    drawing the next chunk's draws: the restore drops them, and the plan
+    from the checkpoint on and the final parameters are the full run's."""
     _, res = port_runs
-    np.testing.assert_array_equal(res["resumed"], res["full"])
+    assert bool(res[f"{tag}_dropped"])
+    np.testing.assert_array_equal(res[f"{tag}_resumed"], res[f"{tag}_ahead"])
+    full = res[f"{tag}_ahead_plan"][res[f"{tag}_ahead_epochs"] > at]
+    np.testing.assert_array_equal(res[f"{tag}_resumed_plan"], full)
+
+
+# epochs whose draws the worker made ahead, by chunk, with nepochs 24 and a
+# save every 8 (phases from 4 and 12): it draws after each chunk up to the
+# next chunk's cap or the first save epoch, and nothing after a chunk that
+# ends at one
+#   3 a chunk: [0,2] 0, [3,3] 1, [4,6] 3, [7,8] 2, [9,11] 0, [12,14] 3,
+#     [15,16] 2, [17,19] 0, [20,22] 3, [23,24] 2
+#   16 (9: plot_freq + 1): [0,3] 0, [4,8] 5, [9,11] 0, [12,16] 5, [17,24] 0
+@pytest.mark.parametrize("tag,share", [("ahead3", 16 / 25),
+                                       ("ahead16", 10 / 25)],
+                         ids=["3_a_chunk", "16_a_chunk"])
+def test_draws_ahead_equal_draws_in_place(port_runs, tag, share):
+    _, res = port_runs
+    np.testing.assert_array_equal(res[f"{tag}_ahead_epochs"],
+                                  res[f"{tag}_in_place_epochs"])
+    np.testing.assert_array_equal(res[f"{tag}_ahead_epochs"],
+                                  np.repeat(np.arange(25), 2))
+    np.testing.assert_array_equal(res[f"{tag}_ahead_plan"],
+                                  res[f"{tag}_in_place_plan"])
+    rngs = json.loads(str(res[f"{tag}_ahead_rngs"]))
+    assert sorted(rngs) == ["step_16", "step_24", "step_8"]
+    assert rngs == json.loads(str(res[f"{tag}_in_place_rngs"]))
+    assert float(res[f"{tag}_ahead_share"]) == pytest.approx(share)
+    assert float(res[f"{tag}_in_place_share"]) == 0
+    np.testing.assert_array_equal(res[f"{tag}_ahead"],
+                                  res[f"{tag}_in_place"])
+
+
+def test_plan_chunk_takes_the_draws_ahead_from_their_first_epoch(
+        scene_dir, tmp_path):
+    """``_plan_chunk`` called directly, as ``scripts/port_trace_pass.py``
+    does, after the worker drew epochs 3-5: asked for epoch 4 it raises;
+    asked for epoch 3 it takes its draws, and for 4-6 the rest and epoch 6
+    drawn in place, all as one host RNG stream draws them."""
+    cfg = _cfg(nepochs=24, epochs_per_dispatch=3, plot_freq=1 / 3)
+    sd = SceneData(scene_dir, load_features=False, device="cpu")
+    t = Trainer(cfg, sd, str(tmp_path), device="cpu", log_fn=lambda *a: 0,
+                trace=True)
+    step = t._get_fused_step(0, cfg.schedule.weights(0))
+    B, P = cfg.train.batch_size, cfg.train.num_pixels
+    ref = np.random.default_rng(cfg.train.seed)
+    want = [(ref.permutation(sd.total_pixels)[:P],
+             ref.permutation(sd.n_images)) for _ in range(7)]
+
+    def check(plan, epochs, e0, e1):
+        assert epochs == list(np.repeat(np.arange(e0, e1 + 1), 2))
+        for k, (row, e) in enumerate(zip(plan, epochs)):
+            sel, order = want[e]
+            np.testing.assert_array_equal(row[:B], order[k % 2 * B:][:B])
+            np.testing.assert_array_equal(row[B:B + P], sel)
+    check(*t._plan_chunk(0, 2, step)[:2], 0, 2)
+    t._draw_ahead(2)
+    with pytest.raises(ValueError, match="epoch 3's"):
+        t._plan_chunk(4, 4, step)
+    check(*t._plan_chunk(3, 3, step)[:2], 3, 3)
+    check(*t._plan_chunk(4, 6, step)[:2], 4, 6)
+    assert t.rng.bit_generator.state == ref.bit_generator.state
+    assert not t._drawn and t._ahead is None
+    np.testing.assert_array_equal(sd.sampling_idx, want[6][0])
+    (span,) = [s for s in t.tracer.spans if s[0] == "draw_ahead"]
+    assert span[5] == {"e0": 3, "e1": 5}
+    assert [(p["ahead"], p["epochs"]) for p in t.tracer.plans] == \
+        [(0, 3), (1, 1), (2, 3)]
 
 
 CLI_RUN = r"""

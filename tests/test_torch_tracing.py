@@ -73,10 +73,17 @@ def test_spans_nest_with_parents_chunks_and_self_time():
     a, b = tr.spans[0][1:3]
     assert all(a <= s[1] <= s[2] <= b for s in tr.spans[1:3])
 
+    # a span timed on another thread: no parent, on the worker's track
+    tr.add_span("draw_ahead", a, b, 4, e0=5, e1=6)
+    assert tr.spans[-1] == ["draw_ahead", a, b, None, 4, {"e0": 5, "e1": 6}]
+    assert tr.worker_spans == {len(tr.spans) - 1}
+
     off = Tracer()
     with off.span("x"):
         pass
-    assert off.spans == [] and off.self_ns() == []
+    off.add_span("draw_ahead", a, b, 4)
+    off.add_plan(1, 2)
+    assert off.spans == [] and off.self_ns() == [] and off.plans == []
 
 
 def test_program_span_brackets_the_profilers_event(tmp_path):
@@ -155,10 +162,12 @@ def test_count_entries_count_their_rows():
     assert probe.buf[stamp.ACTIVE:].tolist() == [120 + 300 + 56] * 2
 
 
-def test_summary_arithmetic_on_known_stamps():
+def test_summary_arithmetic_on_known_stamps(tmp_path):
     """Two chunks of known stamps (host clock): stage means, the gaps
     between replays, the boundary between the chunks, rows and fill; a
-    capture's warm-up row takes no part."""
+    capture's warm-up row takes no part. The second chunk's plan waited 6
+    ms and found its 2 epochs drawn ahead, the first's none of its 3; the
+    worker's span lies on its own track."""
     tr = Tracer(on=True)
     ms = 10 ** 6
 
@@ -170,6 +179,11 @@ def test_summary_arithmetic_on_known_stamps():
     b = [row(150, 70, 100), row(170, 60, 100)]
     tr.add_chunk(0, np.array(a), [False, True, True], 26.0, 2)
     tr.add_chunk(1, np.array(b), [True, True], 33.0, 2)
+    for chunk, ahead, epochs in ((0, 0, 3), (1, 2, 2)):
+        with tr.in_chunk(chunk):
+            tr.add_plan(ahead, epochs)
+    tr.spans.append(["plan_wait", 140 * ms, 146 * ms, None, 1, {}])
+    tr.add_span("draw_ahead", 120 * ms, 125 * ms, 0, e0=1, e1=2)
     got = tr.summary()
     assert got["steps"] == 4
     assert got["step_stage_ms.forward"] == pytest.approx(3)
@@ -185,11 +199,21 @@ def test_summary_arithmetic_on_known_stamps():
     assert got["trace_rows_per_step"] == pytest.approx(100)
     assert got["trace_row_fill"] == pytest.approx(75)
     assert got["clock_ms_per_replay"] == pytest.approx(59 / 4)
+    assert got["plan_wait_ms_per_step"] == pytest.approx(6 / 4)
+    assert got["plan_drawn_ahead_share"] == pytest.approx(2 / 5)
+    assert got["boundaries"][0]["plan_wait"] == [140 * ms, 146 * ms]
     only_b = tr.summary(chunks=[1])
     assert only_b["steps"] == 2
+    assert only_b["plan_wait_ms_per_step"] == pytest.approx(6 / 2)
+    assert only_b["plan_drawn_ahead_share"] == 1
     assert only_b["chunk_boundary_ms_per_step"] == pytest.approx(22 / 2)
     assert only_b["replay_gap_ms_per_step"] == pytest.approx(7 / 2)
     assert Tracer(on=True).summary() == {}
+    tr.write(str(tmp_path / "spans.json"))
+    events = json.load(open(tmp_path / "spans.json"))["traceEvents"]
+    tids = {e["name"]: e["tid"] for e in events if e["ph"] == "X" and
+            e["name"] in ("draw_ahead", "plan_wait")}
+    assert tids == {"draw_ahead": 3, "plan_wait": 1}
 
 
 RUN = r"""
@@ -305,7 +329,8 @@ SUMMARY = ("chunk_boundary_ms_per_step", "replay_gap_ms_per_step",
            "replay_host_ms_per_step", "flush_wait_ms_per_step",
            "step_stage_ms.trace", "step_stage_ms.forward",
            "step_stage_ms.backward", "step_stage_ms.update",
-           "trace_rows_per_step", "trace_row_fill")
+           "trace_rows_per_step", "trace_row_fill", "plan_wait_ms_per_step",
+           "plan_drawn_ahead_share")
 
 
 def test_trace_pass_script_on_the_tiny_cell(tmp_path):
@@ -328,6 +353,7 @@ def test_trace_pass_script_on_the_tiny_cell(tmp_path):
     assert res["summary"]["steps"] == 8
     assert 0 < res["summary"]["trace_row_fill"] < 100
     assert len(res["boundaries"]) == 1
+    assert isinstance(res["boundaries"][0]["plan_wait_ms"], float)
     same = res["same_batch_rows"]
     assert abs(same["active"] - same["reference"]) <= \
         0.01 * same["reference"], same
