@@ -8,16 +8,24 @@ insert the collectives. Here each GPU runs its own process, launched by
 share of the ray axis, and the parameters are replicated. Without
 ``WORLD_SIZE`` in the environment nothing is initialised and the run is
 one process: ``world_size()`` is then 1 and ``rank()`` 0.
+
+The group's start, and every collective it runs outside a CUDA graph, is
+bounded by ``COLLECTIVE_TIMEOUT``: a rank that is lost fails the others'
+waits instead of hanging them. (A collective that a graph replays is not
+watched by torch: whoever drives the replays bounds its own waits.)
 """
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+# the longest a rank waits in the group's start or in one collective
+COLLECTIVE_TIMEOUT = timedelta(minutes=10)
 
 
 def world_size() -> int:
@@ -61,5 +69,6 @@ def init_distributed(backend: Optional[str] = None,
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
-                            world_size=world, rank=r, **kw)
+                            world_size=world, rank=r,
+                            timeout=COLLECTIVE_TIMEOUT, **kw)
     return dev

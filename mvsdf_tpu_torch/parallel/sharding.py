@@ -9,6 +9,12 @@ all-reduce. Here the step does it by hand with the two reductions below:
 every loss divides its rank's numerator by a count summed over all ranks
 (``sum_counts``, no gradient), so the ranks' losses add up to the
 single-process loss, and their gradients are then summed (``sum_``).
+
+Both count what they all-reduce, on the host, where they run: ``ALLREDUCES``
+the collectives, ``ALLREDUCE_BYTES`` their bytes. A CUDA graph that
+captured them replays the collectives without the Python, so the graph's
+owner carries the counts through replays as it carries kernel launches
+(``tracing/kernels/counts``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,20 @@ import torch
 import torch.distributed as dist
 
 from .mesh import DATA_AXIS, rank, world_size
+
+
+class _Count:
+    """A host counter in the form ``tracing/kernels/counts`` carries."""
+    launches = 0
+
+
+ALLREDUCES, ALLREDUCE_BYTES = _Count(), _Count()
+
+
+def _all_reduce(t: torch.Tensor) -> None:
+    ALLREDUCES.launches += 1
+    ALLREDUCE_BYTES.launches += t.numel() * t.element_size()
+    dist.all_reduce(t)
 
 
 def validate_ray_divisibility(num_pixels: int,
@@ -54,17 +74,19 @@ def sum_counts(t: torch.Tensor) -> torch.Tensor:
     if world_size() == 1:
         return t
     out = t.detach().clone()
-    dist.all_reduce(out)
+    _all_reduce(out)
     return out
 
 
 def sum_(tensors: Sequence[torch.Tensor]) -> None:
     """Sum each tensor over the ranks in place, in one all-reduce of their
-    flat concatenation (all on one device and of one dtype)."""
+    flat concatenation (all on one device and of one dtype). Under CUDA
+    graph capture the flat buffer comes from the graph's pool, at one
+    address for every replay."""
     if world_size() == 1 or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    _all_reduce(flat)
     off = 0
     for t in tensors:
         n = t.numel()

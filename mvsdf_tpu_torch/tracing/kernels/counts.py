@@ -1,5 +1,7 @@
 """Launch counts of the training step's kernel wrappers, by name: the
-trace's kernels and the stage stamps and row counters (``stamp.py``).
+trace's kernels and the stage stamps and row counters (``stamp.py``); and
+the data-parallel step's all-reduces and their bytes
+(``parallel/sharding``: ``allreduce``, ``allreduce_bytes``).
 
 Each wrapper adds one to its ``.launches`` where it launches its kernel.
 Under CUDA-graph replay the wrappers run once, at capture, and every replay
@@ -14,7 +16,8 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """name -> wrapper function, for every kernel of the trace and the
-    stage stamps and counters."""
+    stage stamps and counters; name -> counter, for the all-reduces."""
+    from ...parallel import sharding as D
     from . import march_kernel as M
     from . import sdf_mlp as K
     from . import secant_kernel as S
@@ -24,7 +27,8 @@ def wrappers() -> Dict[str, object]:
             "sdf_mlp_count": K.sdf_mlp_count,
             "sdf_mlp_xyz_count": K.sdf_mlp_xyz_count,
             "secant_count": S.secant_count,
-            "stage_stamp": T.stamp, "stage_count": T.count}
+            "stage_stamp": T.stamp, "stage_count": T.count,
+            "allreduce": D.ALLREDUCES, "allreduce_bytes": D.ALLREDUCE_BYTES}
 
 
 def snapshot() -> Dict[str, int]:

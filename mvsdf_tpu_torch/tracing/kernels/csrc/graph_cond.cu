@@ -27,9 +27,10 @@ extern "C" {
 
 // stream: capturing; pred: a device bool read at each replay; body: a
 // stream that is not capturing, which captures the node's body until
-// graph_if_end(body).
+// graph_if_end(body), in capture mode `mode` (a cudaStreamCaptureMode: the
+// main capture's, so that what other threads may call stays the same).
 int graph_if_begin(cudaStream_t stream, const bool* pred,
-                   cudaStream_t body) {
+                   cudaStream_t body, int mode) {
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t err =
@@ -63,7 +64,7 @@ int graph_if_begin(cudaStream_t stream, const bool* pred,
   if (err != cudaSuccess) return err;
   return cudaStreamBeginCaptureToGraph(body, params.conditional.phGraph_out[0],
                                        nullptr, nullptr, 0,
-                                       cudaStreamCaptureModeGlobal);
+                                       static_cast<cudaStreamCaptureMode>(mode));
 }
 
 int graph_if_end(cudaStream_t body) {

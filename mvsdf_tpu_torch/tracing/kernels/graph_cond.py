@@ -3,11 +3,11 @@
 ``ConditionalBodies`` is entered inside a ``torch.cuda.graph`` capture;
 while it is active, ``compaction.run_if`` captures its body into an "if"
 node of the graph (``if_node``) that every replay runs or skips by a bool
-on the device. Bodies are captured on a side stream of their own, and what
-they allocate comes from a memory pool of their own, kept until
-``release()``: the graph's own pool takes only its capture stream's
-allocations. Nothing here runs outside a capture, and nothing here is
-imported by a CPU path.
+on the device. Bodies are captured on a side stream of their own, in the
+main capture's mode (``capture_error_mode``), and what they allocate comes
+from a memory pool of their own, kept until ``release()``: the graph's own
+pool takes only its capture stream's allocations. Nothing here runs
+outside a capture, and nothing here is imported by a CPU path.
 """
 from __future__ import annotations
 
@@ -16,17 +16,22 @@ import contextlib
 import torch
 
 from . import build
-from .sdf_mlp import PTR, raise_on_error
+from .sdf_mlp import INT, PTR, raise_on_error
 
 _ACTIVE = []
+# torch.cuda.graph's capture_error_mode -> cudaStreamCaptureMode
+CAPTURE_MODES = {"global": 0, "thread_local": 1, "relaxed": 2}
 
 
 class ConditionalBodies:
     """The side stream and memory pool of a graph's conditional bodies.
-    Enter inside the graph's capture; call ``release()`` once the graph
-    is gone (its bodies' memory goes back to the allocator)."""
+    Enter inside the graph's capture, made with ``capture_error_mode``;
+    call ``release()`` once the graph is gone (its bodies' memory goes back
+    to the allocator)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 capture_error_mode: str = "global"):
+        self.mode = CAPTURE_MODES[capture_error_mode]
         self.device = torch.device(device)
         self.index = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
@@ -73,11 +78,12 @@ def if_node(pred: torch.Tensor):
     bodies = active()
     if pred.dtype != torch.bool or pred.dim() != 0 or not pred.is_cuda:
         raise ValueError("pred must be a 0-d bool CUDA tensor")
-    begin = build.function("graph_if_begin", (PTR, PTR, PTR))
+    begin = build.function("graph_if_begin", (PTR, PTR, PTR, INT))
     end = build.function("graph_if_end", (PTR,))
     main = torch.cuda.current_stream(bodies.device)
     raise_on_error(begin(main.cuda_stream, pred.data_ptr(),
-                         bodies.stream.cuda_stream), "graph_if_begin")
+                         bodies.stream.cuda_stream, bodies.mode),
+                   "graph_if_begin")
     try:
         with torch.cuda.stream(bodies.stream):
             yield

@@ -17,7 +17,11 @@ wrapper's ``.launches`` (``counts`` carries it through replays).
 The row (``SLOTS`` int64): stamps s0-s5 (step start; before and after the
 trace; after the loss; after the gradients; after the metrics write), then
 ACTIVE, the rows the count entries and the SDF tiles were asked for, and
-COMPUTED, the rows they ran (a plain-field tile runs whole).
+COMPUTED, the rows they ran (a plain-field tile runs whole). Beside the
+row, ``allreduce``: one int64 stamp after the data-parallel step's
+gradient all-reduce, which only a step of several ranks writes
+(``mark_allreduce``; a step of one process has none, and launches
+nothing more).
 """
 from __future__ import annotations
 
@@ -76,11 +80,14 @@ count.launches = 0
 
 class StepProbe:
     """One step's stamp and counter row, ``buf`` (SLOTS int64 on the step's
-    device). Entering zeroes the counters and stamps s0; leaving stamps s5;
-    ``mark`` and ``count_rows`` write into the innermost probe entered."""
+    device), and its stamp after the gradient all-reduce, ``allreduce``.
+    Entering zeroes the counters and stamps s0; leaving stamps s5;
+    ``mark``, ``mark_allreduce`` and ``count_rows`` write into the
+    innermost probe entered."""
 
     def __init__(self, device):
         self.buf = torch.zeros(SLOTS, dtype=torch.int64, device=device)
+        self.allreduce = torch.zeros(1, dtype=torch.int64, device=device)
 
     def __enter__(self):
         _ACTIVE.append(self)
@@ -99,6 +106,12 @@ def mark(slot: int) -> None:
     """Stamp ``slot`` of the entered probe; nothing without one."""
     if _ACTIVE:
         stamp(_ACTIVE[-1].buf, slot)
+
+
+def mark_allreduce() -> None:
+    """Stamp the entered probe's ``allreduce``; nothing without one."""
+    if _ACTIVE:
+        stamp(_ACTIVE[-1].allreduce, 0)
 
 
 def count_rows(n: torch.Tensor, hi: int, mult: int = 1,

@@ -18,11 +18,13 @@ The processes join a NCCL group (gloo with ``--platform cpu``; a caller
 that has already joined a group keeps it); ``--no_mesh`` runs one process
 and refuses a launch of several.
 
-With one process the trainer runs the fused multi-epoch dispatch (chunks
-of up to ``--epochs_per_dispatch`` epochs, each phase's step captured once
-into a CUDA graph and replayed; on the CPU the same chunks run eagerly),
-as the JAX CLI runs its ``lax.scan`` chunks; ``--no_fused``, and every
-data-parallel run, take the per-epoch host loop (``train/loop.py``).
+The trainer runs the fused multi-epoch dispatch (chunks of up to
+``--epochs_per_dispatch`` epochs, each phase's step captured once into a
+CUDA graph and replayed; on the CPU the same chunks run eagerly), as the
+JAX CLI runs its ``lax.scan`` chunks, with one process or several (each
+rank then replays its own graph, with the gradient and loss-count
+all-reduces inside it); ``--no_fused`` takes the per-epoch host loop
+(``train/loop.py``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ snapshots and the full render keep the ground-truth poses
 
 Two paths, as in the JAX package:
 - the fused multi-epoch dispatch (``cfg.train.fused_dispatch``, the
-  default, with one process): the counterpart of the JAX package's
+  default, with one process or several, as the JAX package fuses on a
+  one-host mesh; ``fuses``): the counterpart of the JAX package's
   ``lax.scan`` over a chunk of up to ``epochs_per_dispatch`` epochs. Each
   phase gets one ``step.CapturableStep``, captured into a CUDA graph at
   its first chunk (after any resume) and replayed step after step. The
@@ -44,9 +45,9 @@ Two paths, as in the JAX package:
   between chunks. A torch graph holds one step, so a short chunk replays
   fewer times (JAX pads its scan to a fixed length instead). On the CPU
   the same chunk path runs the same step eagerly.
-- the per-epoch path (``train_epoch``), for ``--no_fused`` and for data
-  parallel runs: the host drives every step, and metrics are read once an
-  epoch (the last step's).
+- the per-epoch path (``train_epoch``), for ``--no_fused``: the host
+  drives every step, and metrics are read once an epoch (the last
+  step's).
 The two paths take the same batches and draws, and their checkpoints are
 interchangeable. Both time their steps on one clock (``_StepClock``: CUDA
 events on a GPU, the host clock on the CPU): ``ms_per_step`` leaves out
@@ -65,13 +66,17 @@ epochs drawn ahead (``Tracer.add_plan``); the
 phase's step is captured again with its stage stamps and row counters
 (``step.CapturableStep(trace=True)``), and each step's row of them is
 copied beside its metrics and read one chunk behind with them, with no
-sync of its own. ``run`` writes them to ``trace_dir/spans.json``. With
-tracing off the spans are profiler annotations only and the captured
-graph is the untraced one.
+sync of its own, with the chunk's all-reduces and their bytes
+(``parallel/sharding``'s counters). ``run`` writes them to
+``trace_dir/spans.json``, and with several ranks each other rank r to
+``trace_dir/spans.rank<r>.json``. With tracing off the spans are profiler
+annotations only and the captured graph is the untraced one.
 
 Data parallel (``parallel/``, one process a GPU): every rank loads the
 scene, draws the same host plan and the same per-step noise, and trains
 on its share of the rays; the step's all-reduce keeps the replicas equal.
+On the fused path each rank captures and replays its own step, with the
+all-reduces inside its graph (``step.CapturableStep``).
 Rank 0 alone logs and writes ``metrics.jsonl``, checkpoints (the others
 wait at a barrier) and plots; the full render's view is drawn from the
 host RNG on every rank, so the ranks' streams stay in step. Every rank
@@ -89,11 +94,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import MVSDFConfig
 from ..data.scene import SceneData
 from ..device import resolve_device
 from ..parallel import barrier, rank, validate_ray_divisibility, world_size
+from ..tracing.kernels import counts
 from ..tracing.kernels.stamp import SLOTS
 from . import checkpoints as ckpt
 from .device_data import DeviceSceneCache
@@ -132,6 +139,24 @@ def _to_pinned(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def fuses(cfg: MVSDFConfig, device=None) -> bool:
+    """Whether ``Trainer.run`` takes the fused chunk path: where
+    ``cfg.train.fused_dispatch`` asks for it, with one process or a
+    process group alike (the JAX package fuses on a one-host mesh); not on
+    a GPU ``device`` whose group is not NCCL's (gloo's collectives run on
+    the host, and a CUDA graph cannot capture them)."""
+    on_gpu = device is not None and torch.device(device).type == "cuda"
+    return cfg.train.fused_dispatch and not (
+        on_gpu and world_size() > 1 and dist.get_backend() != "nccl")
+
+
+def spans_file() -> str:
+    """This rank's file of ``Tracer.write`` under the trace directory:
+    ``spans.json`` on rank 0, ``spans.rank<r>.json`` on rank r."""
+    r = rank()
+    return "spans.json" if r == 0 else f"spans.rank{r}.json"
 
 
 def _draw_epochs(scene: SceneData, rng: np.random.Generator,
@@ -497,8 +522,10 @@ class Trainer:
         None) and the pinned plan, which must live until its copy has
         run. A tracing step's stamp and counter row is copied into row k
         of a second buffer (``stamps``) behind its metrics, and read with
-        them; ``replay`` says which steps were replays (or eager steps on
-        the CPU) and which the capture's warm-up."""
+        them (with several ranks its stamp after the gradient all-reduce
+        too, into ``allreduce``); ``replay`` says which steps were replays
+        (or eager steps on the CPU) and which the capture's warm-up;
+        ``collectives`` the chunk's all-reduces and their bytes."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         span = self.tracer.span
@@ -510,9 +537,12 @@ class Trainer:
                           dtype=torch.float32, device=self.device)
         stamps = None if step.probe is None else torch.empty(
             (len(epochs), SLOTS), dtype=torch.int64, device=self.device)
+        allreduce = None if stamps is None or world_size() == 1 else \
+            torch.empty(len(epochs), dtype=torch.int64, device=self.device)
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
                  "replays": 0, "done": None, "clock": _StepClock(self.device),
-                 "replay": [True] * len(epochs)}
+                 "replay": [True] * len(epochs), "collectives": None}
+        launched = None if stamps is None else counts.snapshot()
         with contextlib.ExitStack() as spans:
             for k in range(len(epochs)):
                 if k == 0 or epochs[k] != epochs[k - 1]:
@@ -533,14 +563,21 @@ class Trainer:
                 out[k].copy_(step.metrics)
                 if stamps is not None:
                     stamps[k].copy_(step.probe.buf)
+                if allreduce is not None:
+                    allreduce[k:k + 1].copy_(step.probe.allreduce)
         if chunk["replays"]:
             chunk["clock"].mark()
+        if launched is not None:
+            n = counts.since(launched)
+            chunk["collectives"] = (n["allreduce"], n["allreduce_bytes"])
         if cuda:
             out = _to_pinned(out)
             stamps = None if stamps is None else _to_pinned(stamps)
+            allreduce = None if allreduce is None else _to_pinned(allreduce)
             chunk["done"] = torch.cuda.Event()
             chunk["done"].record()
         chunk["out"], chunk["stamps"] = out, stamps
+        chunk["allreduce"] = allreduce
         chunk["host_s"] = time.perf_counter() - t0
         return chunk
 
@@ -569,7 +606,10 @@ class Trainer:
         if chunk["stamps"] is not None:
             self.tracer.add_chunk(epochs[0], chunk["stamps"].numpy(),
                                   chunk["replay"], ms_step *
-                                  chunk["replays"], chunk["replays"])
+                                  chunk["replays"], chunk["replays"],
+                                  collectives=chunk["collectives"],
+                                  allreduce=None if chunk["allreduce"] is None
+                                  else chunk["allreduce"].numpy())
         ms_step = max(ms_step, 1e-6)
         self.throughput.add(chunk["rays"] * len(epochs))
         steps = epochs.count(epochs[0])
@@ -664,8 +704,7 @@ class Trainer:
             self.profile_dir and self.profile_epochs > 0 and self.main) \
             else None
         prof_remaining = self.profile_epochs
-        # as the JAX package: the chunk path with one process
-        fused = cfg.train.fused_dispatch and world_size() == 1
+        fused = fuses(cfg, self.device)
         if prof is not None:
             prof.__enter__()
         try:
@@ -703,8 +742,8 @@ class Trainer:
                 prof.__exit__(None, None, None)
         self._flush_metrics()
         self.save(cfg.train.nepochs)
-        if self.trace_dir and self.main:
-            self.tracer.write(os.path.join(self.trace_dir, "spans.json"))
+        if self.trace_dir:
+            self.tracer.write(os.path.join(self.trace_dir, spans_file()))
         rates = self.throughput.rates()
         peak = ""
         if self.device.type == "cuda":

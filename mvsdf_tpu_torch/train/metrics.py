@@ -15,11 +15,14 @@ the host RNG's next chunk ahead) is handed over finished
 (``add_span``). The trainer (``train/loop.py``) hands the tracer each
 chunk's stage stamps and row counters as well, one row a step
 (``tracing/kernels/stamp``: the graph-replayed step stamps s0-s5 on the
-device's ``%globaltimer``), and each plan's count of epochs drawn ahead
-(``add_plan``). ``calibrate`` maps the device's clock onto the host's
-with one bracketed stamp; ``summary`` gives the stage times, the gaps
-between replays and across chunk boundaries, the host spans a step, the
-share of epochs drawn ahead and the trace's rows; ``write`` puts all of
+device's ``%globaltimer``, and with several ranks one more after the
+gradient all-reduce), the chunk's all-reduces and their bytes, and each
+plan's count of epochs drawn ahead (``add_plan``). ``calibrate`` maps
+the device's clock onto the host's with one bracketed stamp; ``summary``
+gives the stage times (the all-reduce's with them), the gaps between
+replays and across chunk boundaries, the host spans a step, the share of
+epochs drawn ahead, the trace's rows and the all-reduces a step;
+``write`` puts all of
 it, converted once to the profiler's clock (Unix nanoseconds, shown from
 the same base time as ``profile_trace``'s ``trace.json``), into one
 Chrome trace-event file with host spans, the worker's spans, device
@@ -44,8 +47,9 @@ from ..tracing.kernels import stamp as _stamp
 # from the start of the 7889238-second interval they fall in
 _KINETO_BASE_S = 7889238
 _HOST_TID, _DEVICE_TID, _WORKER_TID = 1, 2, 3
+# a step's stages between its stamps, in the order of ``_bounds``' columns
 _STAGES = (("forward", 0, 1), ("trace", 1, 2), ("forward", 2, 3),
-           ("backward", 3, 4), ("update", 4, 5))
+           ("backward", 3, 4), ("allreduce", 4, 5), ("update", 5, 6))
 
 
 class MetricsLogger:
@@ -104,8 +108,10 @@ class Tracer:
     (host ``perf_counter`` ns; parent an index into ``spans`` or None);
     ``chunks`` one record a chunk of the fused dispatch: its first epoch,
     its (K, ``stamp.SLOTS``) int64 stamp and counter rows, which rows are
-    replays (the rest: a capture's eager warm-up), and its ``_StepClock``
-    milliseconds over its replays; ``plans`` one record a plan: its
+    replays (the rest: a capture's eager warm-up), its ``_StepClock``
+    milliseconds over its replays, its (all-reduces, bytes) over its K
+    steps or None, and its (K,) stamps after the gradient all-reduce or
+    None (one process); ``plans`` one record a plan: its
     chunk, its epochs and how many of them were drawn ahead;
     ``worker_spans`` the indices of spans timed on another thread.
     ``device_clock``: ``offset_ns`` (device
@@ -202,15 +208,33 @@ class Tracer:
                              "tick_ns": int(np.gcd.reduce(steps))}
 
     def add_chunk(self, e0: int, rows: np.ndarray, replay, clock_ms: float,
-                  replays: int) -> None:
-        """A chunk's stamp and counter rows (module docstring)."""
+                  replays: int, collectives=None, allreduce=None) -> None:
+        """A chunk's stamp and counter rows (module docstring), its
+        (all-reduces, bytes all-reduced) where counted, and its stamps
+        after the gradient all-reduce where a step of several ranks made
+        them."""
         self.chunks.append({"chunk": e0, "rows": np.array(rows, np.int64),
                             "replay": np.asarray(replay, bool),
-                            "clock_ms": clock_ms, "replays": replays})
+                            "clock_ms": clock_ms, "replays": replays,
+                            "collectives": collectives,
+                            "allreduce": None if allreduce is None else
+                            np.array(allreduce, np.int64)})
 
     def _host_ns(self, rows: np.ndarray) -> np.ndarray:
         """Stamps (..., STAMPS) on the host's perf_counter clock."""
         return rows[..., :_stamp.STAMPS] + self.device_clock["offset_ns"]
+
+    def _bounds(self, c: dict, replays: bool = True) -> np.ndarray:
+        """(K, 7) host ns of chunk ``c``'s replays (or every step): s0-s4,
+        the stamp after the gradient all-reduce (s4 where the step has
+        none: one process), s5."""
+        pick = c["replay"] if replays else slice(None)
+        s = self._host_ns(c["rows"][pick])
+        ar = s[:, 4:5]
+        if c.get("allreduce") is not None:
+            ar = c["allreduce"][pick][:, None] + \
+                self.device_clock["offset_ns"]
+        return np.concatenate([s[:, :5], ar, s[:, 5:]], axis=1)
 
     def summary(self, chunks=None) -> dict:
         """Over the replays of the chunks whose first epochs ``chunks``
@@ -219,8 +243,12 @@ class Tracer:
         across chunk boundaries (the same from a chunk's last replay to the
         next one's first), the host's ``replay`` and ``flush_wait`` spans,
         and the mean stages (trace s2 - s1, forward (s1 - s0) + (s3 - s2),
-        backward s4 - s3, update s5 - s4); the trace's SDF rows computed a
-        step and the share of them asked for (ACTIVE over COMPUTED, %).
+        backward s4 - s3, allreduce from s4 to the stamp after the
+        gradient all-reduce, update from there to s5; with one process
+        allreduce is 0 and update s5 - s4); the trace's SDF rows computed
+        a step and the share of them asked for (ACTIVE over COMPUTED, %);
+        the all-reduces and their bytes a step (over every step of the
+        chunks that counted them, None where none did).
         Besides: the stages' sum and the ``_StepClock`` ms a replay, the
         ``plan_wait`` span a step, the share of the chunks' planned epochs
         whose draws were ready when asked, and each boundary with the
@@ -229,7 +257,9 @@ class Tracer:
                   if (chunks is None or c["chunk"] in chunks) and
                   c["replay"].any()]
         ids = {self.chunks[i]["chunk"] for i in picked}
-        stage = dict.fromkeys(("trace", "forward", "backward", "update"), 0)
+        stage = dict.fromkeys(("trace", "forward", "backward", "allreduce",
+                               "update"), 0)
+        n_coll = coll_steps = coll_bytes = 0
         gap = 0
         boundaries = []
         active = computed = steps = replays = 0
@@ -237,13 +267,14 @@ class Tracer:
         for i in picked:
             c = self.chunks[i]
             rows = c["rows"][c["replay"]]
-            s = self._host_ns(rows)
-            stage["trace"] += int((s[:, 2] - s[:, 1]).sum())
-            stage["forward"] += int((s[:, 1] - s[:, 0] +
-                                     s[:, 3] - s[:, 2]).sum())
-            stage["backward"] += int((s[:, 4] - s[:, 3]).sum())
-            stage["update"] += int((s[:, 5] - s[:, 4]).sum())
-            gap += int((s[1:, 0] - s[:-1, 5]).sum())
+            s = self._bounds(c)
+            for name, lo, hi in _STAGES:
+                stage[name] += int((s[:, hi] - s[:, lo]).sum())
+            if c["collectives"] is not None:
+                n_coll += c["collectives"][0]
+                coll_bytes += c["collectives"][1]
+                coll_steps += len(c["rows"])
+            gap += int((s[1:, 0] - s[:-1, 6]).sum())
             prev = [p for p in self.chunks[:i] if p["replay"].any()]
             if prev:
                 last = self._host_ns(prev[-1]["rows"][prev[-1]["replay"]])
@@ -284,6 +315,10 @@ class Tracer:
                    trace_row_fill=100.0 * active / computed if computed
                    else None,
                    stage_sum_ms=ms(sum(stage.values())),
+                   allreduces_per_step=n_coll / coll_steps if coll_steps
+                   else None,
+                   allreduce_bytes_per_step=coll_bytes / coll_steps
+                   if coll_steps else None,
                    clock_ms_per_replay=clock_ms / replays if replays
                    else None,
                    boundaries=boundaries)
@@ -316,7 +351,7 @@ class Tracer:
                                         self_us=own / 1e3)})
         last = None
         for c in self.chunks:
-            s = self._host_ns(c["rows"])
+            s = self._bounds(c, replays=False)
             for k in np.flatnonzero(c["replay"]):
                 args = {"chunk": c["chunk"], "k": int(k)}
                 if last is not None:
@@ -326,6 +361,8 @@ class Tracer:
                         "ts": us(last[1]), "dur": (s[k, 0] - last[1]) / 1e3,
                         "args": args})
                 for name, a, b in _STAGES:
+                    if name == "allreduce" and s[k, b] == s[k, a]:
+                        continue   # one process: no all-reduce
                     events.append({"ph": "X", "name": name, "pid": pid,
                                    "tid": _DEVICE_TID, "ts": us(s[k, a]),
                                    "dur": (s[k, b] - s[k, a]) / 1e3,
@@ -335,7 +372,7 @@ class Tracer:
                                    "active": int(c["rows"][k, _stamp.ACTIVE]),
                                    "computed": int(c["rows"][
                                        k, _stamp.COMPUTED])}})
-                last = (c, s[k, 5])
+                last = (c, s[k, 6])
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms",

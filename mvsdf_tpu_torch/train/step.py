@@ -21,12 +21,19 @@ gradients too) and their metric terms in one all-reduce, before the clip,
 so the clip, the non-finite skip and Adam see the global gradient and its
 norm on every rank, take the same branch and keep the replicas equal.
 After a step each parameter's ``.grad`` holds the gradient Adam applied.
+``CapturableStep`` captures those all-reduces, and the losses' count
+all-reduces, into each rank's graph: every rank captures its own step and
+replays it, and the collectives of a replay meet those of the other
+ranks' replays. None of them sits inside a conditional node, so every
+rank's replay makes the same collectives in the same order whichever of
+its tiers run.
 
 Tracing (``CapturableStep(trace=True)``, which the trainer makes while its
 ``metrics.Tracer`` is on): the step enters its ``stamp.StepProbe``, which
 stamps six points of every run into ``probe.buf`` (s0 the step's start, s1
 and s2 around the frozen trace, s3 after the loss, s4 after the gradients,
-s5 after the metrics write) and counts the rows the trace's SDF
+s5 after the metrics write; with several ranks also ``probe.allreduce``,
+after the gradient all-reduce) and counts the rows the trace's SDF
 evaluations asked for and ran (``tracing/kernels/stamp``). A captured
 graph holds those launches, so every replay stamps and counts. With
 tracing off nothing of it is launched, and the captured graph is the one
@@ -159,6 +166,8 @@ def _gradients(cfg: MVSDFConfig, gates, state: TrainState,
     shares = torch.stack([t.detach() for t in lt] + [
         hits.sum() / (hits.numel() * world_size())])
     sum_(grads + [shares])
+    if world_size() > 1:
+        stamp.mark_allreduce()
     pose_grads = None
     if cameras:
         params.pop()
@@ -299,10 +308,13 @@ class CapturableStep:
     step without running it; ``__call__`` then replays it. The
     conditional nodes' bodies, forward and backward, allocate from the
     pool of the graph's ``ConditionalBodies``, which ``release()`` gives
-    back with the graph. Kernel launch
-    counts (``tracing/kernels/counts``) are taken at the capture and added
-    once per replay. Capture after any restore: the graph holds the
-    addresses of the state's tensors."""
+    back with the graph. With several ranks the warm-up runs the step's
+    all-reduces (every rank captures in step with the others), and the
+    capture is thread-local (``capture_error_mode``), its bodies' too:
+    torch's collective watchdog thread may query its events meanwhile.
+    Kernel launch counts (``tracing/kernels/counts``) are taken at the
+    capture and added once per replay. Capture after any restore: the
+    graph holds the addresses of the state's tensors."""
 
     def __init__(self, cfg: MVSDFConfig, phase_idx: int, weights: Weights,
                  state: TrainState, cache, generator: torch.Generator,
@@ -412,8 +424,9 @@ class CapturableStep:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        self.bodies = ConditionalBodies(dev)
-        with torch.cuda.graph(graph), self.bodies:
+        mode = "thread_local" if world_size() > 1 else "global"
+        self.bodies = ConditionalBodies(dev, mode)
+        with torch.cuda.graph(graph, capture_error_mode=mode), self.bodies:
             self.eager()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0

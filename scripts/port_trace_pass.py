@@ -29,6 +29,13 @@ ms a replay (CUDA events) against the untraced chunks': what tracing
 costs while on. Writes the trace as ``OUT/<cell>.spans.json``
 (``--trace_dir``'s format).
 
+A data-parallel cell (``portbench/drivers/train_ddp.py``) switches tracing
+on every rank, adds each rank's summary of the traced chunks under
+``ranks`` (the stages, with the gradient all-reduce's, and the all-reduces
+and their bytes a step) and writes each rank's trace (rank r's as
+``OUT/<cell>.spans.rank<r>.json``); it runs no same-batch step (each
+rank's batch is its share of the reference's).
+
 ``--tiny`` runs the cell at the harness tests' CPU size
 (``portbench/tests/tiny.py``) on the CPU.
 """
@@ -116,20 +123,31 @@ def _same_batch_rows(drv) -> dict:
             "reference": want}
 
 
+def _ranks(drv) -> int:
+    return getattr(drv, "world", 1)
+
+
+def _set_tracing(drv, on: bool) -> None:
+    """Tracing on or off, on every rank of a data-parallel cell."""
+    getattr(drv, "set_tracing", drv.trainer.set_tracing)(on)
+
+
 def trace_pass(drv, chunks: int) -> dict:
     """The pass on a cell whose window has run (module docstring): an
     untraced block, tracing on (a warm chunk, the traced block, the
-    same-batch step), tracing off (a warm chunk, an untraced block)."""
+    same-batch step with one process), tracing off (a warm chunk, an
+    untraced block)."""
     tr = drv.trainer
     before = _block(drv, chunks)
-    tr.set_tracing(True)
+    _set_tracing(drv, True)
     drv._chunk()
     traced = _block(drv, chunks)
     ids = [c["chunk"] for c in tr.tracer.chunks
            if c["chunk"] >= traced["first_epoch"]]
     summary = tr.tracer.summary(chunks=ids)
-    same = _same_batch_rows(drv)
-    tr.set_tracing(False)
+    ranks = drv.rank_summaries(ids) if _ranks(drv) > 1 else None
+    same = _same_batch_rows(drv) if _ranks(drv) == 1 else None
+    _set_tracing(drv, False)
     drv._chunk()
     after = _block(drv, chunks)
     w = drv.ctx["train_window"]
@@ -143,6 +161,7 @@ def trace_pass(drv, chunks: int) -> dict:
             "boundaries": boundary_checks(summary),
             "device_clock": tr.tracer.device_clock,
             "same_batch_rows": same,
+            "ranks": ranks,
             "blocks": {"window": window, "untraced_before": before,
                        "traced": traced, "untraced_after": after},
             "tracing_cost": {
@@ -169,7 +188,11 @@ def main(argv=None):
         power_limit
     if args.tiny:
         from portbench.tests import tiny
-        cell = tiny.cell(args.workload, tiny.config_of(args.workload))
+        names = {w["name"]: w["config"] for w in load_benchmark()["workloads"]}
+        cell = tiny.cell(args.workload, names.get(
+            args.workload, tiny.config_of(args.workload)))
+        if "ranks" in cell.config:   # two gloo ranks on the CPU
+            cell.config["ranks"] = 2
         device, cache = torch.device("cpu"), os.path.join(
             args.out or ".", "cache")
         card = "cpu"
@@ -187,8 +210,8 @@ def main(argv=None):
     res = {"workload": args.workload, "seed": args.seed, "card": card,
            "setup_s": setup_s, **trace_pass(drv, args.chunks)}
     if args.out:
-        drv.trainer.tracer.write(os.path.join(
-            args.out, f"{args.workload}.spans.json"))
+        path = os.path.join(args.out, f"{args.workload}.spans.json")
+        getattr(drv, "write_spans", drv.trainer.tracer.write)(path)
     drv.release()
     print(json.dumps(res))
     return res
