@@ -39,7 +39,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   graph (the plain field on the march's block, the PE on
                   the fallback's) replayed at those counts: the tiles
                   below the count equal the plain call bit for bit, the
-                  rest untouched, no sync; their times; then the
+                  rest untouched, no sync; their times; then the SDF
+                  network's activation kernel (softplus100: its forward,
+                  grad and grad_grad entries) against the plain chain of
+                  PyTorch's ops on 65,536 x 512 operands, uniform,
+                  extreme and 473-wide strided (at most SP_ULPS units in
+                  the last place, NaN in NaN out), and its times at the
+                  supervised groups' rows beside the byte bound; then the
                   supervised cascade (the field's value + gradient on the
                   bench block's 32,768 rows in tiers, the later ones
                   conditional nodes that autograd passes through; tiers
@@ -62,13 +68,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   per-epoch one the surface rows alone), 5 replays of a
                   plan uploaded in one copy under
                   set_sync_debug_mode("error") (no sync) and their
-                  ms/step; sdf_mlp_count in every replay
+                  ms/step; sdf_mlp_count in every replay, and the SDF
+                  network's activation kernel (its three entries) in
+                  every step and every replay
   4. eval         eval-mode render of one view's 4096 rays; a small render
                   through the kernel against one through the plain field
   5. train_fused  phase 3 in bench_phaseB_fused: the fused march, secant
                   and in-kernel-PE SDF-MLP kernels, and no sdf_mlp; its
-                  graph: sphere_march, sdf_mlp_xyz_count and secant_count
-                  in every replay
+                  graph: sphere_march, sdf_mlp_xyz_count, secant_count
+                  and the activation kernel's entries in every replay
   6. eval_fused   phase 4 in bench_phaseB_fused; then the march's rows
                   evaluated / used once more, on the field those training
                   steps left
@@ -79,7 +87,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   x P=4096, epochs 0..6: phases A, B, C; a checkpoint and a
                   mesh snapshot every epoch, a full render at epoch 4) on
                   its fused default (each phase's step captured once and
-                  replayed, sdf_mlp_count in every chunk) and gates what it
+                  replayed, sdf_mlp_count and each entry of the
+                  activation kernel in every chunk) and gates what it
                   wrote; the host PNG unfilter against its numpy version;
                   phase C's graph: one replay against the eager step
                   (equal bits), an epoch's steps dispatched under
@@ -156,8 +165,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   EXPORT_CHUNK-ray chunk of view 0 against the live render
                   of the plain field (hit masks agree on EXPORT_AGREE of the
                   rays, rgb within EXPORT_TOL where they agree) and against
-                  the live --pallas render (eval_render's gates); no kernel
-                  launched by the artifact; export, load and render times,
+                  the live --pallas render (eval_render's gates); the
+                  artifact launches the activation kernel's forward (the
+                  operator it recorded) and no other kernel; export, load
+                  and render times,
                   peak memory
   15. figures     the scene snapshot of phase 8's mesh with the 49 cameras,
                   and the depth maps of 8 views: PNGs that decode to the
@@ -186,7 +197,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   MVSDF_BENCH_MARCH=1 MVSDF_BENCH_INKPE=1
                   MVSDF_BENCH_SECANT=1: one stdout line each, bench.py's
                   four keys, a finite positive rate; graft_entry.entry() on
-                  the card: finite outputs of the stated shapes, no kernel;
+                  the card: finite outputs of the stated shapes, no trace
+                  kernel (the activation kernel runs);
                   sdf_mlp and secant at the dry run's width 64 against
                   their plain versions, then dryrun_multichip(2), both
                   legs (two gloo ranks and one process on this card, the
@@ -232,6 +244,9 @@ MODEL_ROWS, MODEL_TOL = 4096, 1e-5
 # one tile, the path's mean launch, one row more than fills the card's 132
 # SMs with 64-row tiles, the check
 SIZES = (64, 4096, 8449, N_KERNEL)
+SP_ROWS = 65536                # rows of the activation kernel's checks
+SP_ULPS = 4                    # its tolerance from the plain chain
+SP_TIME_ROWS = (12288, 16384, 65536)  # rt_surf's tier, eik's group
 # secant roots against the f32 plain version: |dz| <= 1e-4 + 1e-4 |z| (it
 # divides by SDF differences) + 2 e / |slope|, where e is the distance of
 # the tile's SDF from f32 measured in this run and slope the f32 SDF's
@@ -498,6 +513,120 @@ def check_sdf_mlps(net, packed, x, pe, weight_bytes):
             f"{xyz_ms:.4f} ms, "
             f"library {cuda_ms(lambda: library_chain(net, xs)):.4f} ms")
     return out, tile_ms
+
+
+def ulps(a, b):
+    """Distance in f32 units in the last place of each pair of entries
+    (0 for +0 and -0); -1 where exactly one is NaN, 0 where both are."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (ordered(a) - ordered(b)).abs()
+    d = torch.where(a.isnan() | b.isnan(), torch.full_like(d, -1), d)
+    return torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
+
+
+def check_softplus100(dev):
+    """The SDF network's activation kernel (csrc/softplus100.cu), each of
+    its three entries against its plain version on the card (the chain of
+    PyTorch's ops the field ran before), on SP_ROWS x 512 operands over
+    uniform z in [-0.5, 0.5] and over extremes (|100 z| from 1e-36 to 1e4,
+    both signs, zeros), and through the scalar path on a 473-wide view of
+    512-wide rows; NaN where the plain chain has NaN and at most SP_ULPS
+    units in the last place elsewhere. Times at the supervised groups' row
+    counts beside the byte bound. Returns the entries."""
+    import torch
+    from mvsdf_tpu_torch.tracing.kernels import softplus100 as SP
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def extremes(n):
+        mag = 10 ** (rand(n, 512) * 40 - 38)
+        sign = torch.where(rand(n, 512) < 0.5, -1.0, 1.0)
+        z = mag * sign
+        z[:, :8] = 0.0
+        z[:, 8:16] = -0.0
+        return z
+    entries, worst = {}, {}
+    for case in ("uniform", "extremes", "strided"):
+        if case == "extremes":
+            y, b = extremes(SP_ROWS), torch.zeros(512, device=dev)
+        else:
+            y, b = rand(SP_ROWS, 512) - 0.5, (rand(512) - 0.5) * 0.1
+        g, gg, a = (torch.randn((SP_ROWS, 512), generator=gen, device=dev)
+                    for _ in range(3))
+        if case == "strided":
+            y, b, g, gg, a = (t[..., :473] for t in (y, b, g, gg, a))
+            b = b.contiguous()
+        z, h = SP.forward(y, b)
+        zr, hr = SP.forward_reference(y, b)
+        pairs = {"forward": [(z, zr), (h, hr)],
+                 "grad": [(SP.grad(g, z), SP.grad_reference(g, zr)),
+                          (SP.grad(g, z, a), SP.grad_reference(g, zr, a))],
+                 "grad_grad": list(zip(SP.grad_grad(gg, g, z),
+                                       SP.grad_grad_reference(gg, g, zr)))}
+        torch.cuda.synchronize()
+        for name, ps in pairs.items():
+            for got, ref in ps:
+                u = ulps(got, ref)
+                if (u < 0).any() or not torch.equal(got.isinf(),
+                                                    ref.isinf()):
+                    raise AssertionError(f"softplus100 {name} {case}: NaN "
+                                         f"or inf where the plain chain "
+                                         f"has none")
+                prev = worst.get(name, (0, 0.0, 1.0))
+                worst[name] = (max(prev[0], int(u.max())),
+                               max(prev[1], (got - ref).abs().nan_to_num(
+                                   0.0).max().item()),
+                               min(prev[2], (u == 0).float().mean().item()))
+            log(f"[kernel] softplus100 {name} {case} {tuple(y.shape)}: "
+                f"max {worst[name][0]} ulp, max|kernel - plain| "
+                f"{worst[name][1]:.3e}, bit-equal share (worst) "
+                f"{worst[name][2]:.6f}")
+    for name, (u, err, _) in worst.items():
+        if u > SP_ULPS:
+            raise AssertionError(f"softplus100 {name}: {u} ulp from the "
+                                 f"plain chain (tolerance {SP_ULPS})")
+    nan = torch.tensor([[float("nan"), 0.01]], device=dev)
+    z, h = SP.forward(nan, torch.zeros(2, device=dev))
+    if not (h[0, 0].isnan() and SP.grad(torch.ones_like(z), z)[0, 0].isnan()
+            and all(t[0, 0].isnan() for t in SP.grad_grad(
+                torch.ones_like(z), torch.ones_like(z), z))):
+        raise AssertionError("softplus100: NaN in did not give NaN out")
+    # bytes a row: (operands read + outputs written) x 512 x 4
+    plans = {"forward": (3, lambda y, b, g, gg, a, z: SP.forward(y, b),
+                         lambda y, b, g, gg, a, z: SP.forward_reference(y, b)),
+             "grad": (4, lambda y, b, g, gg, a, z: SP.grad(g, z, a),
+                      lambda y, b, g, gg, a, z: SP.grad_reference(g, z, a)),
+             "grad_grad": (5, lambda y, b, g, gg, a, z: SP.grad_grad(gg, g, z),
+                           lambda y, b, g, gg, a, z:
+                           SP.grad_grad_reference(gg, g, z))}
+    for n in SP_TIME_ROWS:
+        ops = [rand(n, 512) - 0.5, rand(512) * 0.1, *(rand(n, 512)
+                                                      for _ in range(3))]
+        ops.append(SP.forward(ops[0], ops[1])[0])
+        for name, (passes, fn, ref_fn) in plans.items():
+            ms, plain_ms = cuda_ms(lambda: fn(*ops)), cuda_ms(
+                lambda: ref_fn(*ops))
+            bound_ms = passes * n * 512 * 4 / HBM_BYTES_S * 1e3
+            log(f"[kernel] softplus100 {name} {n} x 512: {ms:.4f} ms, plain "
+                f"chain {plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
+                f"({bound_ms / ms * 100:.1f}% of it)")
+            if n == SP_TIME_ROWS[-1]:
+                entries[name] = {
+                    "name": f"softplus100_{name}", "route": "cuda",
+                    "source": "mvsdf_tpu_torch/tracing/kernels/csrc/"
+                              "softplus100.cu",
+                    "replaces": "none (XLA fuses the chain in the JAX "
+                                "package)", "launches": None,
+                    "max_abs_err": worst[name][1], "max_ulp": worst[name][0],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None}
+    return list(entries.values())
 
 
 def bench_rays(batch, tcfg):
@@ -1253,12 +1382,16 @@ def train_cli(argv, launches):
 def check_launches(launches, fused=True, pallas=True):
     """A training CLI's kernel launches, by chunk or by epoch: the SDF-MLP's
     count entry in every chunk of a fused run (the captured step's trace),
-    sdf_mlp in every epoch of a --no_fused run, and no other kernel; none
-    at all without --pallas. Returns (that kernel, its launches by chunk
-    or epoch)."""
+    sdf_mlp in every epoch of a --no_fused run, and no other trace kernel;
+    none of them without --pallas. The SDF network's activation kernel
+    runs either way: each of its entries in every chunk of a fused run.
+    Returns (that kernel, its launches by chunk or epoch)."""
+    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
     want = ("sdf_mlp_count" if fused else "sdf_mlp") if pallas else None
     if not launches or (want and min(e[want] for e in launches) == 0) or \
-            any(e[k] for e in launches for k in e if k != want):
+            (fused and min(e[k] for e in launches for k in ACT_KERNEL) == 0) \
+            or any(e[k] for e in launches for k in e
+                   if k != want and k not in ACT_KERNEL):
         raise AssertionError(f"kernel launches by "
                              f"{'chunk' if fused else 'epoch'} {launches}")
     return want, [e[want] if want else 0 for e in launches]
@@ -2557,8 +2690,13 @@ def export_phase(tmp, exps, trainer, dev):
         f"{(k_rgb.max().item() if k_rgb.numel() else 0):.3e}; the --pallas "
         f"render against the plain one: max |d dists| on common hits "
         f"{derr:.2e} (gate 1e-3); its launches {k_launches}")
+    # the exported program launches the field's activation kernel (the
+    # operator it recorded) and none of the trace's kernels
     if agree.float().mean().item() < EXPORT_AGREE or err > EXPORT_TOL or \
-            k_agree < 0.99 or derr > 1e-3 or any(launched.values()) or \
+            k_agree < 0.99 or derr > 1e-3 or \
+            launched["softplus100_forward"] == 0 or \
+            any(v for k, v in launched.items()
+                if k != "softplus100_forward") or \
             k_launches["sdf_mlp"] == 0 or not torch.isfinite(got).all() \
             or got.shape != (EXPORT_CHUNK, 3):
         raise AssertionError("the exported renderer disagrees with the "
@@ -2883,6 +3021,7 @@ def bench_phase(batch, dev):
     import torch
     from mvsdf_tpu_torch import graft_entry
     from mvsdf_tpu_torch.bench import FUSED_SWITCHES
+    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
     t_phase = time.perf_counter()
     lines = {name: run_bench_cli(name, sw) for name, sw in (
         ("default", {}), ("fused", FUSED_SWITCHES))}
@@ -2897,9 +3036,9 @@ def bench_phase(batch, dev):
         f"{out[1].float().mean().item():.4f}, launches {counts()}")
     if shapes != [(1, 1024, 3), (1, 1024), (1, 1024)] or not all(
             torch.isfinite(o.float()).all() for o in out) or any(
-            counts().values()):
+            v for k, v in counts().items() if k not in ACT_KERNEL):
         raise AssertionError("entry() gave the wrong shapes, a non-finite "
-                             "value or launched a kernel")
+                             "value or launched a trace kernel")
     del out, args
     entries = check_width64(dev)
     torch.cuda.empty_cache()
@@ -2937,6 +3076,7 @@ def main():
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
     from mvsdf_tpu_torch.tracing.kernels import build
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
+    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
     from mvsdf_tpu_torch.train.step import init_params
 
     # 1. build
@@ -2971,6 +3111,7 @@ def main():
         entries += check_count_entries(net.implicit, tcfg, packed, x, pe,
                                        sec_args, sec_gate, weight_bytes)
         check_conditional_nodes(net.implicit, x, rays)
+        entries += check_softplus100(dev)
     plain_field = copy.deepcopy(net.implicit)
     plain_field.cfg = dataclasses.replace(icfg, bf16_activations=False)
     check_cascade(plain_field)
@@ -2979,19 +3120,22 @@ def main():
 
     # 3-6. the main path in both trace configurations
     state, launches, stats = train("train", cfg, batch, gen, dev,
-                                   every_step=(), some_step=("sdf_mlp",),
+                                   every_step=ACT_KERNEL,
+                                   some_step=("sdf_mlp",),
                                    never=("sdf_mlp_xyz", "secant",
                                           "sphere_march"))
     g_launches = graph_steps("train", cfg, batch, gen, dev, stats[0],
-                             every=("sdf_mlp_count",))
+                             every=("sdf_mlp_count", *ACT_KERNEL))
     eval_render("eval", cfg, state, batch, must=("sdf_mlp",))
     state, f_launches, f_stats = train(
-        "train_fused", fcfg, batch, gen, dev, every_step=("sphere_march",),
+        "train_fused", fcfg, batch, gen, dev,
+        every_step=("sphere_march", *ACT_KERNEL),
         some_step=("sdf_mlp_xyz", "secant"), never=("sdf_mlp",))
     fg_launches = graph_steps("train_fused", fcfg, batch, gen, dev,
                               f_stats[0], every=("sphere_march",
                                                  "sdf_mlp_xyz_count",
-                                                 "secant_count"))
+                                                 "secant_count",
+                                                 *ACT_KERNEL))
     eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
     # the march's rows on the field the training steps left: rays take more
     # line searches on it than on the seed-0 sphere
@@ -3002,8 +3146,9 @@ def main():
     for e in entries:
         name = e["name"]
         e["launches"] = (launches if name == "sdf_mlp" else g_launches
-                         if name == "sdf_mlp_count" else fg_launches
-                         if name.endswith("_count") else f_launches)[name]
+                         if name == "sdf_mlp_count" or name in ACT_KERNEL
+                         else fg_launches if name.endswith("_count")
+                         else f_launches)[name]
 
     # 7-8. the training CLI on a DTU-sized scene directory, then the eval
     # CLI on its checkpoint; 9-10. the same with camera optimisation, then

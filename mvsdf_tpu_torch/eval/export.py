@@ -4,7 +4,8 @@
 Captures the eval-mode render function (a fixed chunk of rays -> RGB) with
 ``torch.export`` and saves the ``ExportedProgram`` (``torch.export.save``):
 a serving process loads and calls it without the model code, the config
-system or the dataset layer. The parameters stay a call-time input (the
+system or the dataset layer (``load_renderer`` imports only the SDF
+activation's operator, below). The parameters stay a call-time input (the
 port's state dict, through ``torch.func.functional_call``), so one artifact
 serves every checkpoint of the same architecture.
 
@@ -13,10 +14,13 @@ trace (``trace_rays(mode=STATIC)``: fixed iteration counts, masks instead
 of gathers), with the shading normals from the hand-derived value +
 gradient: ``torch.export`` can capture neither the live trace's host-synced
 loops and gathers nor ``torch.autograd.grad``. As in the JAX package, which
-exports its pure-XLA path, the hand-written kernels stay a runtime
-optimisation of the live CLIs. The artifact is traced on the device the
-CLI runs on and moved to each device it serves on by
-``torch.export.passes.move_to_device_pass``.
+exports its pure-XLA path, the trace's hand-written kernels stay a runtime
+optimisation of the live CLIs. The SDF network's activation is an operator
+(``mvsdf::softplus100_bias``, ``tracing/kernels/softplus100.py``), which
+the artifact records and calls: on the card it launches its kernel,
+elsewhere it runs PyTorch's ops; ``load_renderer`` registers it. The
+artifact is traced on the device the CLI runs on and moved to each device
+it serves on by ``torch.export.passes.move_to_device_pass``.
 
 CLI:
     python -m mvsdf_tpu_torch.eval.export --conf mvsdf_dtu.conf \\
@@ -126,6 +130,8 @@ def load_renderer(path_or_bytes, device=None):
     names another) -> callable (params, uv, intrinsics, pose, object_mask)
     -> rgb."""
     from torch.export.passes import move_to_device_pass
+
+    from ..tracing.kernels import softplus100  # noqa: F401 (the operators)
     dev = resolve_device(device)
     src = io.BytesIO(bytes(path_or_bytes)) if isinstance(
         path_or_bytes, (bytes, bytearray)) else path_or_bytes

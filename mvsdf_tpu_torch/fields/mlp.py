@@ -50,15 +50,19 @@ class WNLinear(nn.Module):
         return linear_apply(self, x)
 
 
-def linear_apply(layer: WNLinear, x: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) -> (..., d_out) in f32. A bf16 input selects the bf16
-    path: input and weight rounded to bf16, products and sums in f32 (a
-    product of two bf16 values is exact in f32), as JAX's ``dot_general``
-    with ``preferred_element_type=float32``."""
+def linear_apply(layer: WNLinear, x: torch.Tensor,
+                 act=None) -> torch.Tensor:
+    """x (..., d_in) -> (..., d_out) in f32: ``x @ W + b``, or with ``act``
+    ``act(x @ W, b)``, an activation that adds the bias itself. A bf16
+    input selects the bf16 path: input and weight rounded to bf16,
+    products and sums in f32 (a product of two bf16 values is exact in
+    f32), as JAX's ``dot_general`` with ``preferred_element_type=float32``.
+    """
     W = layer.effective_weight()
     if x.dtype == torch.bfloat16:
-        return x.float() @ W.to(torch.bfloat16).float() + layer.b
-    return x @ W + layer.b
+        x, W = x.float(), W.to(torch.bfloat16).float()
+    y = x @ W
+    return y + layer.b if act is None else act(y, layer.b)
 
 
 def torch_linear_default_init(rng: np.random.Generator, d_in, d_out):

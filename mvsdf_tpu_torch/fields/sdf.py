@@ -9,6 +9,13 @@ with ``create_graph=True`` and cotangent e0, so it stays differentiable
 with respect to the parameters; with ``fused_value_grad`` the value, the
 gradient and their backward run through the hand-derived
 ``fused_grad.FusedValueGrad`` instead.
+
+A hidden layer's bias and activation are one operator
+(``bias_softplus100``, ``tracing/kernels/softplus100.py``), and so are
+the activation's VJP in the spatial gradient and that VJP's in the loss's
+backward: on the card each is one launch of the hand-written kernel of
+``tracing/kernels/csrc/softplus100.cu``, elsewhere PyTorch's ops in the
+order ``softplus100(x @ W + b)`` takes them.
 """
 from __future__ import annotations
 
@@ -19,9 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..tracing.kernels import softplus100 as SP
 from .embedder import embed_dim, positional_encoding
 from .fused_grad import fused_full_value_and_grad
-from .mlp import WNLinear
+from .mlp import WNLinear, linear_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +139,17 @@ def softplus100(x: torch.Tensor) -> torch.Tensor:
     return _Softplus100.apply(x)
 
 
+def bias_softplus100(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """softplus100(y + b) for y (..., C) and the bias b (C,), through the
+    operator ``mvsdf::softplus100_bias``: one kernel launch on the card,
+    PyTorch's ops elsewhere. z = y + b is kept only where a gradient will
+    be taken. The bias goes in broadcast to y's shape, so that its row sum
+    is the expand's backward, which the spatial gradient's backward (taken
+    for the points alone) skips."""
+    keep_z = torch.is_grad_enabled() and (y.requires_grad or b.requires_grad)
+    return SP.softplus100_bias(y, b.expand_as(y), keep_z)[1]
+
+
 def implicit_apply(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
     """x (..., 3) -> (..., 2 + feature_vector_size) f32:
     [sdf, surface-indicator logit, feature]."""
@@ -146,11 +165,12 @@ def implicit_apply(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
             h = torch.cat([h, inp], dim=-1) / np.sqrt(2)
             if bf16:
                 h = h.to(torch.bfloat16)
-        h = layer(h)
         if l < n_layers - 1:
-            h = softplus100(h)
+            h = linear_apply(layer, h, bias_softplus100)
             if bf16:
                 h = h.to(torch.bfloat16)
+        else:
+            h = layer(h)
     return h
 
 

@@ -1,5 +1,6 @@
 """Launch counts of the training step's kernel wrappers, by name: the
-trace's kernels and the stage stamps and row counters (``stamp.py``); and
+trace's kernels, the SDF network's activation kernel (``softplus100.py``:
+its three entries) and the stage stamps and row counters (``stamp.py``); and
 the data-parallel step's all-reduces and their bytes
 (``parallel/sharding``: ``allreduce``, ``allreduce_bytes``).
 
@@ -14,19 +15,28 @@ from __future__ import annotations
 from typing import Dict
 
 
+# the activation kernel's entries in ``wrappers``
+ACT_KERNEL = ("softplus100_forward", "softplus100_grad",
+              "softplus100_grad_grad")
+
+
 def wrappers() -> Dict[str, object]:
-    """name -> wrapper function, for every kernel of the trace and the
-    stage stamps and counters; name -> counter, for the all-reduces."""
+    """name -> wrapper function, for every kernel of the trace, the
+    activation kernel's entries and the stage stamps and counters; name ->
+    counter, for the all-reduces."""
     from ...parallel import sharding as D
     from . import march_kernel as M
     from . import sdf_mlp as K
     from . import secant_kernel as S
+    from . import softplus100 as A
     from . import stamp as T
     return {"sdf_mlp": K.sdf_mlp, "sdf_mlp_xyz": K.sdf_mlp_xyz,
             "secant": S.secant, "sphere_march": M.sphere_march,
             "sdf_mlp_count": K.sdf_mlp_count,
             "sdf_mlp_xyz_count": K.sdf_mlp_xyz_count,
             "secant_count": S.secant_count,
+            "softplus100_forward": A.forward, "softplus100_grad": A.grad,
+            "softplus100_grad_grad": A.grad_grad,
             "stage_stamp": T.stamp, "stage_count": T.count,
             "allreduce": D.ALLREDUCES, "allreduce_bytes": D.ALLREDUCE_BYTES}
 

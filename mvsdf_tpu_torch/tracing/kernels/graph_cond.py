@@ -16,7 +16,7 @@ import contextlib
 import torch
 
 from . import build
-from .sdf_mlp import INT, PTR, raise_on_error
+from .launch import INT, PTR, raise_on_error
 
 _ACTIVE = []
 # torch.cuda.graph's capture_error_mode -> cudaStreamCaptureMode

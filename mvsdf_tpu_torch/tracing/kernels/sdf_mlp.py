@@ -52,6 +52,7 @@ import torch
 from ...fields.embedder import embed_dim, positional_encoding
 from ...fields.sdf import ImplicitConfig, ImplicitNetwork, softplus100
 from . import build, stamp
+from .launch import INT, PTR, on_cpu, raise_on_error, stream
 
 MAX_H = 512      # two warpgroups, each a 256-column wgmma
 MAX_HIDDEN = 32  # skip layers are a 32-bit mask
@@ -338,19 +339,8 @@ def sdf_mlp_split_reference(packed: PackedSDF, pe: torch.Tensor,
 
 # --- launching ------------------------------------------------------------
 
-PTR, INT = ctypes.c_void_p, ctypes.c_int
 # the packed split weights as every kernel's C entry point takes them
 TC_WEIGHT_ARGTYPES = (INT, INT, INT, ctypes.c_uint, PTR, PTR, PTR)
-
-
-def on_cpu(t: torch.Tensor, name: str) -> bool:
-    """True for a CPU tensor (the plain version runs), False for a CUDA
-    tensor (the kernel runs); raises for any other device."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
-    return False
 
 
 def check_tensors(device: torch.device, dtype=torch.float32, **tensors):
@@ -386,15 +376,6 @@ def tc_weight_args(packed: PackedSDF, device: torch.device) -> list:
     return [packed.d_pe, HP, n_hid, _skip_mask(packed),
             packed.w_tc.data_ptr(), packed.v_tc.data_ptr(),
             packed.b_out.data_ptr()]
-
-
-def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def raise_on_error(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _launch(packed: PackedSDF, pe: torch.Tensor) -> torch.Tensor:

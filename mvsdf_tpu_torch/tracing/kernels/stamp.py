@@ -44,7 +44,7 @@ def stamp(buf: torch.Tensor, slot: int) -> None:
         buf[slot] = time.perf_counter_ns()
         return
     from . import build
-    from .sdf_mlp import INT, PTR, raise_on_error, stream
+    from .launch import INT, PTR, raise_on_error, stream
     fn = build.function("stage_stamp", (PTR, INT, PTR))
     raise_on_error(fn(buf.data_ptr(), slot, stream(buf.device)),
                    "stage_stamp")
@@ -66,7 +66,7 @@ def count(buf: torch.Tensor, n: torch.Tensor, mult: int, hi: int,
         return
     import ctypes
     from . import build
-    from .sdf_mlp import INT, PTR, raise_on_error, stream
+    from .launch import INT, PTR, raise_on_error, stream
     n = n.to(torch.int32)
     i64 = ctypes.c_longlong
     fn = build.function("stage_count", (PTR, INT, PTR, i64, i64, i64, PTR))

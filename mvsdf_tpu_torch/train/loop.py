@@ -525,7 +525,9 @@ class Trainer:
         them (with several ranks its stamp after the gradient all-reduce
         too, into ``allreduce``); ``replay`` says which steps were replays
         (or eager steps on the CPU) and which the capture's warm-up;
-        ``collectives`` the chunk's all-reduces and their bytes."""
+        ``collectives`` the chunk's all-reduces and their bytes; ``act``
+        its replays' launches of the activation kernel
+        (``counts.ACT_KERNEL``)."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         span = self.tracer.span
@@ -541,8 +543,10 @@ class Trainer:
             torch.empty(len(epochs), dtype=torch.int64, device=self.device)
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
                  "replays": 0, "done": None, "clock": _StepClock(self.device),
-                 "replay": [True] * len(epochs), "collectives": None}
+                 "replay": [True] * len(epochs), "collectives": None,
+                 "act": None}
         launched = None if stamps is None else counts.snapshot()
+        act_from = launched   # the activation's count: replays only
         with contextlib.ExitStack() as spans:
             for k in range(len(epochs)):
                 if k == 0 or epochs[k] != epochs[k - 1]:
@@ -554,6 +558,8 @@ class Trainer:
                         step.capture()   # step k is the warm-up
                     chunk["capture_s"] = step.capture_s
                     chunk["replay"][k] = False
+                    if launched is not None:
+                        act_from = counts.snapshot()
                 else:
                     if chunk["replays"] == 0:
                         chunk["clock"].mark()
@@ -570,6 +576,8 @@ class Trainer:
         if launched is not None:
             n = counts.since(launched)
             chunk["collectives"] = (n["allreduce"], n["allreduce_bytes"])
+            n = counts.since(act_from)
+            chunk["act"] = sum(n[k] for k in counts.ACT_KERNEL)
         if cuda:
             out = _to_pinned(out)
             stamps = None if stamps is None else _to_pinned(stamps)
@@ -608,6 +616,7 @@ class Trainer:
                                   chunk["replay"], ms_step *
                                   chunk["replays"], chunk["replays"],
                                   collectives=chunk["collectives"],
+                                  act=chunk["act"],
                                   allreduce=None if chunk["allreduce"] is None
                                   else chunk["allreduce"].numpy())
         ms_step = max(ms_step, 1e-6)

@@ -16,13 +16,14 @@ the host RNG's next chunk ahead) is handed over finished
 chunk's stage stamps and row counters as well, one row a step
 (``tracing/kernels/stamp``: the graph-replayed step stamps s0-s5 on the
 device's ``%globaltimer``, and with several ranks one more after the
-gradient all-reduce), the chunk's all-reduces and their bytes, and each
-plan's count of epochs drawn ahead (``add_plan``). ``calibrate`` maps
+gradient all-reduce), the chunk's all-reduces and their bytes, its
+replays' launches of the SDF network's activation kernel, and each plan's
+count of epochs drawn ahead (``add_plan``). ``calibrate`` maps
 the device's clock onto the host's with one bracketed stamp; ``summary``
 gives the stage times (the all-reduce's with them), the gaps between
 replays and across chunk boundaries, the host spans a step, the share of
-epochs drawn ahead, the trace's rows and the all-reduces a step;
-``write`` puts all of
+epochs drawn ahead, the trace's rows, the all-reduces and the
+activation kernel's launches a step; ``write`` puts all of
 it, converted once to the profiler's clock (Unix nanoseconds, shown from
 the same base time as ``profile_trace``'s ``trace.json``), into one
 Chrome trace-event file with host spans, the worker's spans, device
@@ -208,15 +209,16 @@ class Tracer:
                              "tick_ns": int(np.gcd.reduce(steps))}
 
     def add_chunk(self, e0: int, rows: np.ndarray, replay, clock_ms: float,
-                  replays: int, collectives=None, allreduce=None) -> None:
+                  replays: int, collectives=None, allreduce=None,
+                  act=None) -> None:
         """A chunk's stamp and counter rows (module docstring), its
-        (all-reduces, bytes all-reduced) where counted, and its stamps
-        after the gradient all-reduce where a step of several ranks made
-        them."""
+        (all-reduces, bytes all-reduced) where counted, its stamps after
+        the gradient all-reduce where a step of several ranks made them,
+        and its replays' activation kernel launches where counted."""
         self.chunks.append({"chunk": e0, "rows": np.array(rows, np.int64),
                             "replay": np.asarray(replay, bool),
                             "clock_ms": clock_ms, "replays": replays,
-                            "collectives": collectives,
+                            "collectives": collectives, "act": act,
                             "allreduce": None if allreduce is None else
                             np.array(allreduce, np.int64)})
 
@@ -248,7 +250,9 @@ class Tracer:
         allreduce is 0 and update s5 - s4); the trace's SDF rows computed
         a step and the share of them asked for (ACTIVE over COMPUTED, %);
         the all-reduces and their bytes a step (over every step of the
-        chunks that counted them, None where none did).
+        chunks that counted them, None where none did); the activation
+        kernel's launches a replay (``act_kernel_launches_per_step``; None
+        where no chunk counted them).
         Besides: the stages' sum and the ``_StepClock`` ms a replay, the
         ``plan_wait`` span a step, the share of the chunks' planned epochs
         whose draws were ready when asked, and each boundary with the
@@ -260,6 +264,7 @@ class Tracer:
         stage = dict.fromkeys(("trace", "forward", "backward", "allreduce",
                                "update"), 0)
         n_coll = coll_steps = coll_bytes = 0
+        act = act_steps = 0
         gap = 0
         boundaries = []
         active = computed = steps = replays = 0
@@ -274,6 +279,9 @@ class Tracer:
                 n_coll += c["collectives"][0]
                 coll_bytes += c["collectives"][1]
                 coll_steps += len(c["rows"])
+            if c["act"] is not None:
+                act += c["act"]
+                act_steps += c["replays"]
             gap += int((s[1:, 0] - s[:-1, 6]).sum())
             prev = [p for p in self.chunks[:i] if p["replay"].any()]
             if prev:
@@ -319,6 +327,8 @@ class Tracer:
                    else None,
                    allreduce_bytes_per_step=coll_bytes / coll_steps
                    if coll_steps else None,
+                   act_kernel_launches_per_step=act / act_steps
+                   if act_steps else None,
                    clock_ms_per_replay=clock_ms / replays if replays
                    else None,
                    boundaries=boundaries)

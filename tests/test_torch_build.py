@@ -11,7 +11,8 @@ from mvsdf_tpu_torch.tracing.kernels import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUDA_FILES = ["graph_cond.cu", "march.cu", "mlp_tile_tc.cuh",
-              "png_unfilter.cu", "sdf_mlp.cu", "secant.cu", "stamp.cu"]
+              "png_unfilter.cu", "sdf_mlp.cu", "secant.cu", "softplus100.cu",
+              "stamp.cu"]
 HOST_FILES = ["jpeg.cpp", "marching_tets.cpp", "maxflow.cpp"]
 
 
