@@ -4,13 +4,12 @@ configurations of the main path (phase-B training steps of the full-size
 model at the bench shapes, then an eval render) through them, trains a
 DTU-sized scene directory end to end through the training CLI, evaluates
 the checkpoint through the eval CLI, does both again with camera
-optimisation, trims the mesh, runs the bench step through the fused value
-+ gradient, converts a Vis-MVSNet directory and trains on it, trains data
-parallel over two processes, exports the renderer for serving, draws the
-figures, trains the shaded scene's 600-epoch capstone and holds its
-quality to the JAX package's bars, runs the multi-scan suite on two
-synthetic scans, runs the port's bench and driver entry points and checks
-that runs repeat to the bit, and prints what it measured.
+optimisation, trims the mesh, converts a Vis-MVSNet directory and trains
+on it, trains data parallel over two processes, exports the renderer for
+serving, draws the figures, trains the shaded scene's 600-epoch capstone
+and holds its quality to the JAX package's bars, runs the multi-scan suite
+on two synthetic scans, runs the port's bench and driver entry points and
+checks that runs repeat to the bit, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -125,13 +124,6 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   trimming CLI (--thresh auto, then 15) on phase 8's 512^3
                   mesh, each native cut held to scipy's max-flow on the same
                   graph: equal flow values and faces removed
-  11. fused_grad  bench_phaseB with fused_value_grad (the hand-derived
-                  value + gradient backward): one step's loss terms and
-                  parameter gradients from the seed-0 weights and draws
-                  against the autograd path's, in f32 (the step parity's
-                  tolerances) and in bf16 (twice what the JAX package's two
-                  paths part by on the CPU); then 3 warm-up + 5 timed steps
-                  beside phase 3's ms/step and peak memory, sdf_mlp only
   12. convert     the JPEG decoder on every committed fixture (equal to
                   OpenCV's decode) and its ms per megapixel; a Vis-MVSNet
                   directory made of phase 7's scene (its PNG images, depth
@@ -166,10 +158,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   of the plain field (hit masks agree on EXPORT_AGREE of the
                   rays, rgb within EXPORT_TOL where they agree) and against
                   the live --pallas render (eval_render's gates); the
-                  artifact launches the activation kernel's forward (the
-                  operator it recorded) and no other kernel; export, load
-                  and render times,
-                  peak memory
+                  artifact launches the activation kernel's forward and
+                  derivative (the operators it recorded) and no other
+                  kernel; export, load and render times, peak memory
   15. figures     the scene snapshot of phase 8's mesh with the 49 cameras,
                   and the depth maps of 8 views: PNGs that decode to the
                   expected shapes and are not blank; their seconds
@@ -309,20 +300,6 @@ TRIM_THRESHOLDS = ("auto", "15")
 RESUME_RTOL = 1e-3
 LOSSES = ("loss", "rgb_loss", "eikonal_loss", "depth_loss", "feat_loss",
           "surf_loss")
-# the fused value + gradient against the autograd path, one step: in f32
-# the step parity's tolerances (loss terms relative, each gradient tensor
-# against its largest entry); in bf16, where the two paths round at
-# different points by design, twice what the JAX package's two paths part
-# by on the CPU (tests/test_torch_fused_grad.py): 1.1e-3 a loss term,
-# and 2.07e-3 the gradient's global relative norm at the seed-0 init
-# weights, the kind this step starts from
-FUSED_LOSS_RTOL, FUSED_GRAD_TOL = 1e-4, 2e-3
-BF16_LOSS_RTOL, BF16_GRAD_RTOL = 2.2e-3, 4.2e-3
-# the fused path's bf16 rounding is there: bf16 moves its gradient (global
-# relative norm, bf16 step against f32 step) by ROUNDING_RATIO times what
-# it moves autograd's gradient, within these bounds (0.86 and 1.03 on the
-# CPU; a fused path that rounded nothing reads 0)
-ROUNDING_RATIO = (0.5, 2.0)
 # the convert phase: phase 7's scene as Vis-MVSNet output; probability
 # maps at 1/PROB_DIVS of the depth size, PROB_HIGH with PROB_LOW regions
 # (no bilinear sample of them lies near a threshold of 0.8 or 0.7)
@@ -350,6 +327,10 @@ DDP_TIMEOUT_S = 300
 # against the live plain render
 EXPORT_CHUNK = 10000
 EXPORT_AGREE, EXPORT_TOL = 0.999, 1e-4
+# the kernels the artifact launches: the activation's operators, which it
+# recorded (the forward, and the derivative of the shading normals'
+# reverse pass)
+EXPORT_KERNELS = ("softplus100_forward", "softplus100_grad")
 DEPTH_VIEWS = 8
 # the validation phase: the 600-epoch capstone at full width through the
 # kernels, seed 0, gated by the JAX package's quality bars
@@ -2039,100 +2020,6 @@ def trim_phase(tmp, obj):
         cut.maxflow_cut, cut.face_adjacency_edges = maxflow, adjacency
 
 
-def with_implicit(cfg, **kw):
-    return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, implicit=dataclasses.replace(cfg.model.implicit, **kw)))
-
-
-def step_losses_and_grads(cfg, batch, dev):
-    """One phase-B step's loss terms and parameter gradients from the
-    seed-0 weights and the seed-0 generator's draws."""
-    import torch
-    from mvsdf_tpu_torch.rendering.renderer import render_forward
-    from mvsdf_tpu_torch.supervision.losses import total_loss
-    from mvsdf_tpu_torch.train.step import init_params
-    net = init_params(cfg, seed=0, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    gates = cfg.schedule.gates_for_phase(1)
-    out = render_forward(cfg.model, net, batch, training=True, gates=gates,
-                         generator=gen)
-    lt = total_loss(out, batch, gates, cfg.schedule, cfg.schedule.weights(0.3))
-    named = list(net.named_parameters())
-    grads = torch.autograd.grad(lt.loss, [p for _, p in named],
-                                allow_unused=True)
-    return ({k: float(getattr(lt, k)) for k in lt._fields},
-            {n: torch.zeros_like(p) if g is None else g.detach()
-             for (n, p), g in zip(named, grads)})
-
-
-def path_difference(fused, auto):
-    """(worst relative difference of a loss term, worst gradient tensor's
-    max |difference| over its largest entry and its name, the gradient's
-    global relative norm of the difference) of two
-    ``step_losses_and_grads``."""
-    (lf, gf), (la, ga) = fused, auto
-    loss = max(abs(lf[k] - la[k]) / max(abs(la[k]), 1e-12) for k in la
-               if la[k] != 0)
-    each = {n: ((gf[n] - ga[n]).abs().max() /
-                ga[n].abs().max().clamp_min(1e-12)).item() for n in ga}
-    name = max(each, key=each.get)
-    num = sum(((gf[n] - ga[n]) ** 2).sum().item() for n in ga)
-    den = sum((ga[n] ** 2).sum().item() for n in ga)
-    return loss, each[name], name, (num / den) ** 0.5
-
-
-def fused_grad_phase(batch, gen, dev, autograd_stats):
-    """Phase 11: bench_phaseB with fused_value_grad. Gate 1 (f32) and gate
-    2 (bf16): one step against the autograd path's; gate 3: bf16 moves the
-    fused step's gradient as far as it moves autograd's; then WARMUP +
-    TIMED steps beside phase 3's."""
-    cfg = bench_config()
-    runs = {(fused, bf16): step_losses_and_grads(
-        with_implicit(cfg, fused_value_grad=fused, bf16_activations=bf16),
-        batch, dev) for bf16 in (False, True) for fused in (True, False)}
-    for bf16 in (False, True):
-        loss, worst, name, glob = path_difference(runs[True, bf16],
-                                                  runs[False, bf16])
-        if bf16:
-            ok = loss <= BF16_LOSS_RTOL and glob <= BF16_GRAD_RTOL
-            bounds = (f"tolerances {BF16_LOSS_RTOL:g} a loss term, "
-                      f"{BF16_GRAD_RTOL:g} the global norm")
-        else:
-            ok = loss <= FUSED_LOSS_RTOL and worst <= FUSED_GRAD_TOL
-            bounds = (f"tolerances {FUSED_LOSS_RTOL:g} a loss term, "
-                      f"{FUSED_GRAD_TOL:g} a tensor")
-        log(f"[fused_grad] {'bf16' if bf16 else 'f32'} step, fused against "
-            f"autograd: worst loss term {loss:.3e} relative, worst gradient "
-            f"{worst:.3e} of its largest entry ({name}), global relative "
-            f"norm {glob:.3e} ({bounds}): {'ok' if ok else 'FAILED'}")
-        if not ok:
-            raise AssertionError("the fused value + gradient disagrees with "
-                                 "the autograd path")
-    moved = {fused: path_difference(runs[fused, True], runs[fused, False])
-             for fused in (True, False)}
-    ratio = moved[True][3] / max(moved[False][3], 1e-30)
-    ok = ROUNDING_RATIO[0] <= ratio <= ROUNDING_RATIO[1]
-    _, worst, name, glob = path_difference(runs[False, True],
-                                           runs[True, False])
-    log(f"[fused_grad] bf16 against f32, global relative norm: fused "
-        f"{moved[True][3]:.3e} (worst tensor {moved[True][1]:.3e}, "
-        f"{moved[True][2]}), autograd {moved[False][3]:.3e} (worst "
-        f"{moved[False][1]:.3e}, {moved[False][2]}), ratio {ratio:.3f} "
-        f"(bounds {ROUNDING_RATIO}): {'ok' if ok else 'FAILED'}; control, "
-        f"the f32 fused step against the bf16 autograd step: global "
-        f"{glob:.3e}, worst tensor {worst:.3e} ({name})")
-    if not ok:
-        raise AssertionError("bf16 does not move the fused step's gradient "
-                             "as it moves the autograd step's")
-    _, _, (ms, peak) = train(
-        "fused_grad", with_implicit(cfg, fused_value_grad=True), batch, gen,
-        dev, every_step=(), some_step=("sdf_mlp",),
-        never=("sdf_mlp_xyz", "secant", "sphere_march"))
-    log(f"[fused_grad] bench_phaseB with fused_value_grad {ms:.1f} ms/step, "
-        f"peak {peak:.2f} GiB; phase 3 (autograd) in this run "
-        f"{autograd_stats[0]:.1f} ms/step, peak {autograd_stats[1]:.2f} GiB")
-
-
 def check_jpeg_fixtures():
     """Every committed JPEG fixture decoded equal to its committed OpenCV
     decode (the 1600x1200 view: to the SHA-256 of it), the progressive one
@@ -2690,13 +2577,14 @@ def export_phase(tmp, exps, trainer, dev):
         f"{(k_rgb.max().item() if k_rgb.numel() else 0):.3e}; the --pallas "
         f"render against the plain one: max |d dists| on common hits "
         f"{derr:.2e} (gate 1e-3); its launches {k_launches}")
-    # the exported program launches the field's activation kernel (the
-    # operator it recorded) and none of the trace's kernels
+    # the exported program launches the field's activation kernels (the
+    # operators it recorded: the activation, and its derivative in the
+    # shading normals' reverse pass) and none of the trace's kernels
     if agree.float().mean().item() < EXPORT_AGREE or err > EXPORT_TOL or \
             k_agree < 0.99 or derr > 1e-3 or \
-            launched["softplus100_forward"] == 0 or \
+            not all(launched[k] for k in EXPORT_KERNELS) or \
             any(v for k, v in launched.items()
-                if k != "softplus100_forward") or \
+                if k not in EXPORT_KERNELS) or \
             k_launches["sdf_mlp"] == 0 or not torch.isfinite(got).all() \
             or got.shape != (EXPORT_CHUNK, 3):
         raise AssertionError("the exported renderer disagrees with the "
@@ -3161,10 +3049,8 @@ def main():
         trim_phase(tmp, os.path.join(
             tmp, "evals", "smoke",
             f"surface_world_coordinates_{CLI_EPOCHS}.obj"))
-        # 11. the bench step through the fused value + gradient; 12. the
-        # JPEG decoder, the converter on phase 7's scene, and training on
-        # what it wrote
-        fused_grad_phase(batch, gen, dev, stats)
+        # 12. the JPEG decoder, the converter on phase 7's scene, and
+        # training on what it wrote
         convert_phase(tmp, run["data_dir"])
         # 13. data parallel; 14. the serving export; 15. the figures
         trainer = ddp_phase(tmp, run["data_dir"])

@@ -1,6 +1,7 @@
 """Benchmark: training-step throughput (rays/s per GPU, forward + backward)
 of the full-size model on one GPU (counterpart of the JAX package's
-``bench.py``, same contract, switches and protocol).
+``bench.py``, same contract, switches and protocol; bench.py's
+MVSDF_BENCH_FUSEDGRAD selects a JAX-only path and is not read here).
 
     python -m mvsdf_tpu_torch.bench
 
@@ -27,7 +28,6 @@ Switches (environment, bench.py's defaults and meaning; ``bench_config``):
   MVSDF_BENCH_FILLSKIP=1       skip the training-mode miss fill
   MVSDF_BENCH_COMPACT=1        the fallback stage's compaction tiers
   MVSDF_BENCH_MARCH_COMPACT=1  the mid-march compaction schedule
-  MVSDF_BENCH_FUSEDGRAD=0      the hand-derived value + gradient backward
   MVSDF_BENCH_SUPCOMPACT=1     the supervised path on surface hits only
   MVSDF_BENCH_BF16ACT=1        bf16 activation storage in the supervised MLP
   MVSDF_BENCH_PRECISION=default  f32 matmuls of the step: default and
@@ -119,10 +119,6 @@ def bench_config(env: Optional[Mapping[str, str]] = None,
                 (0, (0.375, 0.5)), (1, (0.1875, 0.25)),
                 (5, (0.0625, 0.125, 0.25)))))
         log("march compaction: on")
-    if on("FUSEDGRAD", "0"):
-        model = rep(model, implicit=rep(model.implicit,
-                                        fused_value_grad=True))
-        log("fused value+grad backward: on")
     if on("SUPCOMPACT", "1"):
         model = rep(model, supervised_compact_frac=(0.375,))
         log("supervised compaction: on")

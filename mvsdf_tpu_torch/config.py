@@ -9,7 +9,9 @@ from the end of phase A).
 Fields that only steer XLA in the JAX package (``shard_map_trace``,
 ``supervised_remat``, ``pallas_block``, ``pallas_march_block``,
 ``pallas_interpret``, the capacity fractions) are accepted so configs
-carry over, and change no result here. ``supervised_compact_frac`` sets
+carry over, and change no result here. ``ImplicitConfig.fused_value_grad``
+(JAX's hand-derived value + gradient backward) keeps JAX's schema and is
+refused when set: the port's one path is autograd's. ``supervised_compact_frac`` sets
 the tiers of the graph-replayed step's supervised cascade
 (``compaction.bounded_cascade_call_into``), whose later tiers are always
 recomputed in the backward: JAX's ``supervised_remat=True``, whose

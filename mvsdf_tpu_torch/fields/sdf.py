@@ -6,9 +6,7 @@ re-concatenated at layer 4 (scaled 1/sqrt(2)), Softplus(beta=100)
 activations, and a geometric init that makes the SDF approximate a sphere
 of radius ``bias``. The spatial gradient is one ``torch.autograd.grad``
 with ``create_graph=True`` and cotangent e0, so it stays differentiable
-with respect to the parameters; with ``fused_value_grad`` the value, the
-gradient and their backward run through the hand-derived
-``fused_grad.FusedValueGrad`` instead.
+with respect to the parameters.
 
 A hidden layer's bias and activation are one operator
 (``bias_softplus100``, ``tracing/kernels/softplus100.py``), and so are
@@ -28,7 +26,6 @@ from torch import nn
 
 from ..tracing.kernels import softplus100 as SP
 from .embedder import embed_dim, positional_encoding
-from .fused_grad import fused_full_value_and_grad
 from .mlp import WNLinear, linear_apply
 
 
@@ -46,11 +43,15 @@ class ImplicitConfig:
     # Store hidden activations in bf16; products and sums stay f32 (see
     # mlp.linear_apply).
     bf16_activations: bool = False
-    # The value + spatial gradient and their backward through the
-    # hand-derived fused_grad.FusedValueGrad (one tangent pass, stacked
-    # cotangent matmuls, only pre-activations kept) instead of autograd's
-    # double backward. Off by default, as in the JAX package.
+    # The JAX package's hand-derived value + gradient backward: kept so
+    # the schema is JAX's, and refused when set (autograd's double
+    # backward is the port's one path).
     fused_value_grad: bool = False
+
+    def __post_init__(self):
+        if self.fused_value_grad:
+            raise ValueError("fused_value_grad: the port has one value + "
+                             "gradient path, autograd's; leave it False")
 
     @property
     def layer_dims(self) -> Tuple[int, ...]:
@@ -116,8 +117,9 @@ def init_implicit(cfg: ImplicitConfig, rng: np.random.Generator
 
 
 class _Softplus100(torch.autograd.Function):
-    """Softplus(beta=100) as ``logaddexp(0, 100x) / 100`` with the
-    derivative sigmoid(100x). ``torch.logaddexp``'s own second derivative
+    """Softplus(beta=100), the kernels layer's plain expression
+    (``SP.softplus100``), with the derivative sigmoid(100x)
+    (``SP.grad_reference``). ``torch.logaddexp``'s own second derivative
     overflows to NaN for large negative inputs; this backward is built from
     differentiable ops, so the spatial gradient's parameter gradient (a
     double backward) stays finite."""
@@ -125,17 +127,18 @@ class _Softplus100(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        z = 100.0 * x
-        return torch.logaddexp(torch.zeros_like(z), z) * 0.01
+        return SP.softplus100(x)
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        return grad * torch.sigmoid(100.0 * x)
+        return SP.grad_reference(grad, x)
 
 
 def softplus100(x: torch.Tensor) -> torch.Tensor:
-    """Softplus(beta=100) in the stable ``logaddexp(0, 100x) / 100`` form."""
+    """Softplus(beta=100) in the stable ``logaddexp(0, 100x) / 100`` form,
+    twice differentiable: the plain version the card tests and
+    ``chip_smoke.py`` hold the activation kernel to."""
     return _Softplus100.apply(x)
 
 
@@ -184,10 +187,7 @@ def full_value_and_grad(net: ImplicitNetwork, x: torch.Tensor):
     forward pass. When grad mode is on, the gradient keeps its graph
     (``create_graph=True``) so losses on it reach the parameters and, if
     ``x`` itself requires grad, whatever ``x`` was computed from. Under
-    ``torch.no_grad()`` both results come back detached. With
-    ``cfg.fused_value_grad`` the same through ``fused_grad``."""
-    if net.cfg.fused_value_grad:
-        return fused_full_value_and_grad(net, x)
+    ``torch.no_grad()`` both results come back detached."""
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x if (create and x.requires_grad) else \

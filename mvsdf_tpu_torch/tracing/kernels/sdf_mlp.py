@@ -50,8 +50,9 @@ import numpy as np
 import torch
 
 from ...fields.embedder import embed_dim, positional_encoding
-from ...fields.sdf import ImplicitConfig, ImplicitNetwork, softplus100
+from ...fields.sdf import ImplicitConfig, ImplicitNetwork
 from . import build, stamp
+from .softplus100 import softplus100
 from .launch import INT, PTR, on_cpu, raise_on_error, stream
 
 MAX_H = 512      # two warpgroups, each a 256-column wgmma

@@ -27,7 +27,13 @@ in the spatial gradient's backward), and ``softplus100_grad``'s is
 ``softplus100_grad_grad``, which is not (no loss takes a third
 derivative). Being operators, they are what ``torch.export`` records, so
 an exported program launches the kernel on the card too.
-``fields/sdf.bias_softplus100`` calls them.
+``fields/sdf.bias_softplus100`` and the export's value + gradient
+(``fields/fused_grad.value_and_grad``) call them.
+
+``softplus100`` and the ``*_reference`` functions are the activation's
+one plain form. The field's plain activation (``fields/sdf.softplus100``)
+and the trace kernels' plain versions (``sdf_mlp.mlp_chain``) take it
+from here.
 """
 from __future__ import annotations
 
@@ -42,11 +48,17 @@ from .launch import raise_on_error, stream
 PTR, I64, INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
+def softplus100(z: torch.Tensor) -> torch.Tensor:
+    """Softplus(beta=100) in the stable ``logaddexp(0, 100 z) / 100``
+    form: the activation's one plain expression."""
+    t = 100.0 * z
+    return torch.logaddexp(torch.zeros_like(t), t) * 0.01
+
+
 def forward_reference(y: torch.Tensor, b: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     z = y + b
-    t = 100.0 * z
-    return z, torch.logaddexp(torch.zeros_like(t), t) * 0.01
+    return z, softplus100(z)
 
 
 def grad_reference(g: torch.Tensor, z: torch.Tensor,

@@ -4,8 +4,7 @@ Runs one of the two trace configurations of the bench step (full-width
 model, B=8 x P=4096 rays, phase B): bench_phaseB (chip_smoke.bench_config,
 the trace through the sdf_mlp kernel) or, with --fused, bench_phaseB_fused
 (chip_smoke.fused_config: the fused march, secant and in-kernel-PE
-SDF-MLP kernels); --fused_grad sets ``fused_value_grad`` on either (the
-supervised value + gradient through fields/fused_grad.py). Reports:
+SDF-MLP kernels). Reports:
   - wall time per step, and the part spent in the no-grad trace
     (renderer._frozen_trace, synchronized before and after);
   - for each trace kernel, launches and MLP rows per step (for the march,
@@ -22,8 +21,8 @@ supervised value + gradient through fields/fused_grad.py). Reports:
     row: the capture's seconds and graph pool, the window's ms/step, device
     time by kernel and busy share, beside the per-epoch window's.
 
-    python3 scripts/port_step_profile.py [--fused] [--fused_grad] [--chunk]
-        [--steps 5] [--out f]
+    python3 scripts/port_step_profile.py [--fused] [--chunk] [--steps 5]
+        [--out f]
 
 Prints the result as JSON (and writes it to --out if given). Needs a GPU.
 """
@@ -48,9 +47,6 @@ def main():
     ap.add_argument("--fused", action="store_true",
                     help="profile bench_phaseB_fused instead of "
                          "bench_phaseB")
-    ap.add_argument("--fused_grad", action="store_true",
-                    help="the supervised value + gradient through the "
-                         "hand-derived fused backward")
     ap.add_argument("--chunk", action="store_true",
                     help="also profile a chunk of graph replays of the "
                          "captured step")
@@ -63,7 +59,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import B, P, bench_config, fused_config, with_implicit
+    from chip_smoke import B, P, bench_config, fused_config
     from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
     from mvsdf_tpu_torch.rendering import renderer
     from mvsdf_tpu_torch.tracing.kernels import march_kernel as M
@@ -79,8 +75,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = fused_config() if args.fused else bench_config()
-    if args.fused_grad:
-        cfg = with_implicit(cfg, fused_value_grad=True)
     batch = scene_to_torch(make_scene(n_images=B, n_pix=P, feat_ch=32,
                                       img_hw=96, depth_hw=48), dev)
     state = init_train_state(cfg, seed=0, device=dev)
@@ -191,8 +185,7 @@ def main():
         profiled_rows_evaluated_per_step=p_eval / args.steps)
     res = {
         "device": smi, "config": ("bench_phaseB_fused" if args.fused
-                                  else "bench_phaseB") +
-        (" fused_value_grad" if args.fused_grad else ""),
+                                  else "bench_phaseB"),
         "steps": args.steps,
         "step_ms": step_ms, "trace_ms_per_step": trace_ms,
         "kernels": per_kernel,

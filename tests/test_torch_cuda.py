@@ -469,32 +469,27 @@ def test_camera_training_step_on_the_card(cuda):
 @pytest.mark.cuda
 @WIDTHS
 def test_fused_value_grad_matches_autograd_on_the_card(cuda, kw):
-    """The fused value + gradient (fields/fused_grad.py) against the
-    autograd path on the card in f32 (TF32 off): out, g and the gradients
-    of every parameter and of x under a loss that reads value, eikonal and
-    a directional term of g; the bounds of the CPU tests (out and g within
-    1e-5, each gradient within 2e-5 of its largest entry)."""
-    import dataclasses
-    cfg = t_sdf.ImplicitConfig(**kw)
-    net = t_sdf.init_implicit(cfg, np.random.default_rng(0)).to(cuda)
-    x0 = torch.rand((4097, 3), generator=torch.Generator(device=cuda)
-                    .manual_seed(0), device=cuda) * 1.8 - 0.9
-    runs = []
-    for fused in (True, False):
-        net.cfg = dataclasses.replace(cfg, fused_value_grad=fused)
-        x = x0.clone().requires_grad_(True)
-        out, g = t_sdf.full_value_and_grad(net, x)
-        loss = ((out[:, 0] ** 2).mean() + 0.3 * (out[:, 1:] ** 2).mean() +
-                ((g.norm(dim=-1) - 1) ** 2).mean() +
-                0.7 * (g * torch.sin(3 * x)).sum(-1).mean())
-        grads = torch.autograd.grad(loss, [x, *net.parameters()])
-        runs.append((out.detach(), g.detach(), grads))
-    (of, gf, df), (oa, ga, da) = runs
+    """The export's value + gradient (``fields/fused_grad.value_and_grad``:
+    no autograd, the activation kernel's forward and derivative launched
+    by hand) against the training path's (``full_value_and_grad`` under
+    ``torch.no_grad()``: autograd through the activation kernel) on the
+    card in f32 (TF32 off): out and g within the CPU tests' bound, 1e-5."""
+    from mvsdf_tpu_torch.fields import fused_grad
+    from mvsdf_tpu_torch.tracing.kernels import counts
+    net = t_sdf.init_implicit(t_sdf.ImplicitConfig(**kw),
+                              np.random.default_rng(0)).to(cuda)
+    x = torch.rand((4097, 3), generator=torch.Generator(device=cuda)
+                   .manual_seed(0), device=cuda) * 1.8 - 0.9
+    before = counts.snapshot()
+    of, gf = fused_grad.value_and_grad(net, x)
+    n = counts.since(before)
+    hidden = len(net.layers) - 1
+    assert n["softplus100_forward"] == n["softplus100_grad"] == hidden
+    with torch.no_grad():
+        oa, ga = t_sdf.full_value_and_grad(net, x)
+    assert of.grad_fn is None and gf.grad_fn is None
     assert (of - oa).abs().max().item() <= 1e-5
     assert (gf - ga).abs().max().item() <= 1e-5
-    for a, b in zip(df, da):
-        assert (a - b).abs().max().item() <= 2e-5 * max(
-            b.abs().max().item(), 1e-12)
 
 
 @pytest.mark.cuda
@@ -571,8 +566,9 @@ def test_exported_renderer_loads_on_the_card(cuda, tmp_path):
     (the gathered trace, autograd's normals) on the card: hit masks on
     0.99 of the rays at least, rgb within 1e-4 where they agree; and it
     serves a second checkpoint through the same artifact. The artifact
-    launches the activation kernel's forward (the operator it recorded)
-    and no other kernel."""
+    launches the activation kernel's forward and derivative (the
+    operators it recorded; the derivative in the shading normals' reverse
+    pass) and no other kernel."""
     from mvsdf_tpu_torch.config import ModelConfig, MVSDFConfig
     from mvsdf_tpu_torch.data.synthetic import make_scene, scene_to_torch
     from mvsdf_tpu_torch.eval import export
@@ -602,9 +598,9 @@ def test_exported_renderer_loads_on_the_card(cuda, tmp_path):
             torch.cuda.synchronize()
             n = counts.since(before)
             live = render_forward(cfg.model, net, view, training=False)
-        assert n["softplus100_forward"] > 0
-        assert not any(v for k, v in n.items()
-                       if k != "softplus100_forward")
+        act = ("softplus100_forward", "softplus100_grad")
+        assert all(n[k] > 0 for k in act)
+        assert not any(v for k, v in n.items() if k not in act)
         hit = (got != 1.0).any(-1)
         agree = hit == live.network_object_mask[0]
         assert got.device.type == "cuda" and torch.isfinite(got).all()
