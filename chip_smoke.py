@@ -1366,13 +1366,14 @@ def check_launches(launches, fused=True, pallas=True):
     sdf_mlp in every epoch of a --no_fused run, and no other trace kernel;
     none of them without --pallas. The SDF network's activation kernel
     runs either way: each of its entries in every chunk of a fused run.
-    Returns (that kernel, its launches by chunk or epoch)."""
-    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
+    The counts of rows (``counts.ROWS``) are no launches. Returns (that
+    kernel, its launches by chunk or epoch)."""
+    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL, ROWS
     want = ("sdf_mlp_count" if fused else "sdf_mlp") if pallas else None
     if not launches or (want and min(e[want] for e in launches) == 0) or \
             (fused and min(e[k] for e in launches for k in ACT_KERNEL) == 0) \
             or any(e[k] for e in launches for k in e
-                   if k != want and k not in ACT_KERNEL):
+                   if k != want and k not in ACT_KERNEL + ROWS):
         raise AssertionError(f"kernel launches by "
                              f"{'chunk' if fused else 'epoch'} {launches}")
     return want, [e[want] if want else 0 for e in launches]
@@ -2909,7 +2910,7 @@ def bench_phase(batch, dev):
     import torch
     from mvsdf_tpu_torch import graft_entry
     from mvsdf_tpu_torch.bench import FUSED_SWITCHES
-    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
+    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL, ROWS
     t_phase = time.perf_counter()
     lines = {name: run_bench_cli(name, sw) for name, sw in (
         ("default", {}), ("fused", FUSED_SWITCHES))}
@@ -2924,7 +2925,7 @@ def bench_phase(batch, dev):
         f"{out[1].float().mean().item():.4f}, launches {counts()}")
     if shapes != [(1, 1024, 3), (1, 1024), (1, 1024)] or not all(
             torch.isfinite(o.float()).all() for o in out) or any(
-            v for k, v in counts().items() if k not in ACT_KERNEL):
+            v for k, v in counts().items() if k not in ACT_KERNEL + ROWS):
         raise AssertionError("entry() gave the wrong shapes, a non-finite "
                              "value or launched a trace kernel")
     del out, args

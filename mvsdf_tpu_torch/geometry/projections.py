@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing.kernels.counts import HostCount
+
 
 def _inv(m):
     """torch.linalg.inv without its singularity check, which reads the
@@ -22,9 +24,23 @@ def _inv(m):
     return torch.linalg.inv_ex(m)[0]
 
 
+# the rows ``_apply`` contracts: its output's elements over its last dim
+PROJECTED_ROWS = HostCount()
+
+
 def _apply(M, p):
-    """M (..., i, j) @ p (..., j) with broadcasting -> (..., i)."""
-    return torch.matmul(M, p.unsqueeze(-1)).squeeze(-1)
+    """M (..., i, j) @ p (..., j) with broadcasting -> (..., i).
+
+    The columns' products summed left to right with plain ``*`` and ``+``:
+    M keeps its broadcast, no intermediate is wider than the output, and
+    the sum's order, and so its bits, are the same on every device.
+    ``torch.matmul`` would copy M once a point and run one tiny gemv per
+    point."""
+    out = M[..., :, 0] * p[..., None, 0]
+    for j in range(1, M.shape[-1]):
+        out = out + M[..., :, j] * p[..., None, j]
+    PROJECTED_ROWS.launches += out.numel() // out.shape[-1]
+    return out
 
 
 def to_hom(x):

@@ -23,15 +23,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..tracing.kernels.counts import HostCount
 from .mesh import DATA_AXIS, rank, world_size
 
-
-class _Count:
-    """A host counter in the form ``tracing/kernels/counts`` carries."""
-    launches = 0
-
-
-ALLREDUCES, ALLREDUCE_BYTES = _Count(), _Count()
+ALLREDUCES, ALLREDUCE_BYTES = HostCount(), HostCount()
 
 
 def _all_reduce(t: torch.Tensor) -> None:

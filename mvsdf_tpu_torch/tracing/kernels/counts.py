@@ -2,7 +2,9 @@
 trace's kernels, the SDF network's activation kernel (``softplus100.py``:
 its three entries) and the stage stamps and row counters (``stamp.py``); and
 the data-parallel step's all-reduces and their bytes
-(``parallel/sharding``: ``allreduce``, ``allreduce_bytes``).
+(``parallel/sharding``: ``allreduce``, ``allreduce_bytes``); the rows the
+camera projections contract (``geometry/projections``:
+``projected_rows``).
 
 Each wrapper adds one to its ``.launches`` where it launches its kernel.
 Under CUDA-graph replay the wrappers run once, at capture, and every replay
@@ -15,15 +17,24 @@ from __future__ import annotations
 from typing import Dict
 
 
+class HostCount:
+    """A count the host keeps where the work is asked for, in the form
+    ``wrappers`` carries: a ``.launches`` integer."""
+    launches = 0
+
+
 # the activation kernel's entries in ``wrappers``
 ACT_KERNEL = ("softplus100_forward", "softplus100_grad",
               "softplus100_grad_grad")
+# the entries of ``wrappers`` that count rows of work, not launches
+ROWS = ("projected_rows",)
 
 
 def wrappers() -> Dict[str, object]:
     """name -> wrapper function, for every kernel of the trace, the
     activation kernel's entries and the stage stamps and counters; name ->
-    counter, for the all-reduces."""
+    counter, for the all-reduces and the projected rows."""
+    from ...geometry import projections as G
     from ...parallel import sharding as D
     from . import march_kernel as M
     from . import sdf_mlp as K
@@ -38,7 +49,8 @@ def wrappers() -> Dict[str, object]:
             "softplus100_forward": A.forward, "softplus100_grad": A.grad,
             "softplus100_grad_grad": A.grad_grad,
             "stage_stamp": T.stamp, "stage_count": T.count,
-            "allreduce": D.ALLREDUCES, "allreduce_bytes": D.ALLREDUCE_BYTES}
+            "allreduce": D.ALLREDUCES, "allreduce_bytes": D.ALLREDUCE_BYTES,
+            "projected_rows": G.PROJECTED_ROWS}
 
 
 def snapshot() -> Dict[str, int]:

@@ -527,7 +527,8 @@ class Trainer:
         (or eager steps on the CPU) and which the capture's warm-up;
         ``collectives`` the chunk's all-reduces and their bytes; ``act``
         its replays' launches of the activation kernel
-        (``counts.ACT_KERNEL``)."""
+        (``counts.ACT_KERNEL``); ``projected`` the rows their camera
+        projections contracted (``projected_rows``)."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         span = self.tracer.span
@@ -544,9 +545,9 @@ class Trainer:
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
                  "replays": 0, "done": None, "clock": _StepClock(self.device),
                  "replay": [True] * len(epochs), "collectives": None,
-                 "act": None}
+                 "act": None, "projected": None}
         launched = None if stamps is None else counts.snapshot()
-        act_from = launched   # the activation's count: replays only
+        replays_from = launched   # the activation's and projections' counts
         with contextlib.ExitStack() as spans:
             for k in range(len(epochs)):
                 if k == 0 or epochs[k] != epochs[k - 1]:
@@ -559,7 +560,7 @@ class Trainer:
                     chunk["capture_s"] = step.capture_s
                     chunk["replay"][k] = False
                     if launched is not None:
-                        act_from = counts.snapshot()
+                        replays_from = counts.snapshot()
                 else:
                     if chunk["replays"] == 0:
                         chunk["clock"].mark()
@@ -576,8 +577,9 @@ class Trainer:
         if launched is not None:
             n = counts.since(launched)
             chunk["collectives"] = (n["allreduce"], n["allreduce_bytes"])
-            n = counts.since(act_from)
+            n = counts.since(replays_from)
             chunk["act"] = sum(n[k] for k in counts.ACT_KERNEL)
+            chunk["projected"] = n["projected_rows"]
         if cuda:
             out = _to_pinned(out)
             stamps = None if stamps is None else _to_pinned(stamps)
@@ -617,6 +619,7 @@ class Trainer:
                                   chunk["replays"], chunk["replays"],
                                   collectives=chunk["collectives"],
                                   act=chunk["act"],
+                                  projected=chunk["projected"],
                                   allreduce=None if chunk["allreduce"] is None
                                   else chunk["allreduce"].numpy())
         ms_step = max(ms_step, 1e-6)

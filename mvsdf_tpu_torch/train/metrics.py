@@ -210,15 +210,17 @@ class Tracer:
 
     def add_chunk(self, e0: int, rows: np.ndarray, replay, clock_ms: float,
                   replays: int, collectives=None, allreduce=None,
-                  act=None) -> None:
+                  act=None, projected=None) -> None:
         """A chunk's stamp and counter rows (module docstring), its
         (all-reduces, bytes all-reduced) where counted, its stamps after
         the gradient all-reduce where a step of several ranks made them,
-        and its replays' activation kernel launches where counted."""
+        and its replays' activation kernel launches and projected rows
+        where counted."""
         self.chunks.append({"chunk": e0, "rows": np.array(rows, np.int64),
                             "replay": np.asarray(replay, bool),
                             "clock_ms": clock_ms, "replays": replays,
                             "collectives": collectives, "act": act,
+                            "projected": projected,
                             "allreduce": None if allreduce is None else
                             np.array(allreduce, np.int64)})
 
@@ -251,8 +253,9 @@ class Tracer:
         a step and the share of them asked for (ACTIVE over COMPUTED, %);
         the all-reduces and their bytes a step (over every step of the
         chunks that counted them, None where none did); the activation
-        kernel's launches a replay (``act_kernel_launches_per_step``; None
-        where no chunk counted them).
+        kernel's launches and the camera projections' rows a replay
+        (``act_kernel_launches_per_step``, ``projected_rows_per_step``;
+        None where no chunk counted them).
         Besides: the stages' sum and the ``_StepClock`` ms a replay, the
         ``plan_wait`` span a step, the share of the chunks' planned epochs
         whose draws were ready when asked, and each boundary with the
@@ -264,7 +267,7 @@ class Tracer:
         stage = dict.fromkeys(("trace", "forward", "backward", "allreduce",
                                "update"), 0)
         n_coll = coll_steps = coll_bytes = 0
-        act = act_steps = 0
+        act = act_steps = projected = projected_steps = 0
         gap = 0
         boundaries = []
         active = computed = steps = replays = 0
@@ -282,6 +285,9 @@ class Tracer:
             if c["act"] is not None:
                 act += c["act"]
                 act_steps += c["replays"]
+            if c["projected"] is not None:
+                projected += c["projected"]
+                projected_steps += c["replays"]
             gap += int((s[1:, 0] - s[:-1, 6]).sum())
             prev = [p for p in self.chunks[:i] if p["replay"].any()]
             if prev:
@@ -329,6 +335,8 @@ class Tracer:
                    if coll_steps else None,
                    act_kernel_launches_per_step=act / act_steps
                    if act_steps else None,
+                   projected_rows_per_step=projected / projected_steps
+                   if projected_steps else None,
                    clock_ms_per_replay=clock_ms / replays if replays
                    else None,
                    boundaries=boundaries)

@@ -983,9 +983,10 @@ def test_graph_replay_equals_the_eager_capturable_step(cuda, cameras,
                                                        monkeypatch):
     """The captured step replayed from the same state, row and generator
     state as its eager run: every tensor it writes equal to the bit; the
-    kernels' launches added once per replay (no trace kernel for the
-    plain field, whose blocks run in 256-row tiles: many conditional
-    nodes; the activation kernel in every configuration)."""
+    kernels' launches and the projected rows added once per replay (no
+    trace kernel for the plain field, whose blocks run in 256-row tiles:
+    many conditional nodes; the activation kernel in every
+    configuration)."""
     from mvsdf_tpu_torch import compaction
     from mvsdf_tpu_torch.tracing.kernels import counts
     monkeypatch.setattr(compaction, "TILE_ROWS", 256)
@@ -998,7 +999,8 @@ def test_graph_replay_equals_the_eager_capturable_step(cuda, cameras,
     else:
         # the SDF network's activation kernel runs either way
         assert not any(v for k, v in step.launches.items()
-                       if k not in counts.ACT_KERNEL)
+                       if k not in counts.ACT_KERNEL + counts.ROWS)
+    assert step.launches["projected_rows"] > 0
     step.row.copy_(row(2))
     written = step.written()
     before = [t.clone() for t in written]
@@ -1411,3 +1413,35 @@ def test_capturable_step_replay_through_the_activation_kernel(
         assert (a - b).abs().max() <= 1e-5 * b.abs().max().clamp_min(
             1e-30), i
     step.release()
+
+
+@pytest.mark.cuda
+def test_projection_contraction_on_the_card_equals_the_cpu(cuda):
+    """The depth-map unprojection's two contractions at the cells' shapes
+    (8 maps of 600 x 800: intrinsics over the shared pixel grid, then
+    extrinsics over a point a pixel) from seeded operands: the card's
+    ``projections._apply`` equal to the CPU's to the bit (the same
+    products, summed in the same order), in one kernel a product and one
+    a sum, none of them a ``gemv`` or ``gemm``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mvsdf_tpu_torch.geometry import projections as proj
+    gen = torch.Generator().manual_seed(0)
+    N, h, w = 8, 600, 800
+    cases = ((torch.randn((N, 1, 1, 3, 3), generator=gen),
+              proj.pixel_grid(h, w)),
+             (torch.randn((N, 1, 1, 4, 4), generator=gen),
+              torch.randn((N, h, w, 4), generator=gen) * 100))
+    for M, p in cases:
+        want = proj._apply(M, p)
+        Md, pd = M.to(cuda), p.to(cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = proj._apply(Md, pd)
+            torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 2 * M.shape[-1] - 1, kernels
+        assert not any("gemv" in k or "gemm" in k for k in kernels), kernels

@@ -307,6 +307,8 @@ def test_cpu_steps_carry_six_monotone_stamps_and_rows(traced_run):
     assert (s[1:, 0] >= s[:-1, 5]).all()
     assert (rows[:, stamp.ACTIVE] > 0).all()
     assert (rows[:, stamp.ACTIVE] <= rows[:, stamp.COMPUTED]).all()
+    # every phase carves, so every chunk's steps projected rows
+    assert all(c["projected"] > 0 for c in chunks)
     summ = on["summary"]
     assert summ["steps"] == 8
     stage = sum(summ[f"step_stage_ms.{k}"] for k in
