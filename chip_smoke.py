@@ -37,14 +37,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   the bounded blocks' tiles as conditional nodes of a CUDA
                   graph (the plain field on the march's block, the PE on
                   the fallback's) replayed at those counts: the tiles
-                  below the count equal the plain call bit for bit, the
-                  rest untouched, no sync; their times; then the SDF
+                  below the count equal the plain call on each tile bit
+                  for bit, the rest untouched, no sync; their times;
+                  then the SDF
                   network's activation kernel (softplus100: its forward,
-                  grad and grad_grad entries) against the plain chain of
+                  grad and grad_grad entries, with f32 operands and with
+                  the bf16 activations') against the plain chain of
                   PyTorch's ops on 65,536 x 512 operands, uniform,
                   extreme and 473-wide strided (at most SP_ULPS units in
-                  the last place, NaN in NaN out), and its times at the
-                  supervised groups' rows beside the byte bound; then the
+                  the last place of an f32 output, SP_BF16_ULPS of a bf16
+                  one, NaN in NaN out), and its times at the supervised
+                  groups' rows beside the byte bound; then the
                   supervised cascade (the field's value + gradient on the
                   bench block's 32,768 rows in tiers, the later ones
                   conditional nodes that autograd passes through; tiers
@@ -68,7 +71,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   plan uploaded in one copy under
                   set_sync_debug_mode("error") (no sync) and their
                   ms/step; sdf_mlp_count in every replay, and the SDF
-                  network's activation kernel (its three entries) in
+                  network's activation kernel (its three entries, with
+                  the bench's bf16 activations on bf16 operands) in
                   every step and every replay
   4. eval         eval-mode render of one view's 4096 rays; a small render
                   through the kernel against one through the plain field
@@ -87,7 +91,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                   mesh snapshot every epoch, a full render at epoch 4) on
                   its fused default (each phase's step captured once and
                   replayed, sdf_mlp_count and each entry of the
-                  activation kernel in every chunk) and gates what it
+                  activation kernel, f32, in every chunk: the launches
+                  the kernels line gives the f32 entries) and gates what it
                   wrote; the host PNG unfilter against its numpy version;
                   phase C's graph: one replay against the eager step
                   (equal bits), an epoch's steps dispatched under
@@ -237,6 +242,8 @@ MODEL_ROWS, MODEL_TOL = 4096, 1e-5
 SIZES = (64, 4096, 8449, N_KERNEL)
 SP_ROWS = 65536                # rows of the activation kernel's checks
 SP_ULPS = 4                    # its tolerance from the plain chain
+SP_BF16_ULPS = 1               # that of its bf16 outputs (f32 values that
+                               # may part by SP_ULPS, rounded to bf16)
 SP_TIME_ROWS = (12288, 16384, 65536)  # rt_surf's tier, eik's group
 # secant roots against the f32 plain version: |dz| <= 1e-4 + 1e-4 |z| (it
 # divides by SDF differences) + 2 e / |slope|, where e is the distance of
@@ -512,15 +519,19 @@ def ulps(a, b):
 def check_softplus100(dev):
     """The SDF network's activation kernel (csrc/softplus100.cu), each of
     its three entries against its plain version on the card (the chain of
-    PyTorch's ops the field ran before), on SP_ROWS x 512 operands over
-    uniform z in [-0.5, 0.5] and over extremes (|100 z| from 1e-36 to 1e4,
-    both signs, zeros), and through the scalar path on a 473-wide view of
-    512-wide rows; NaN where the plain chain has NaN and at most SP_ULPS
-    units in the last place elsewhere. Times at the supervised groups' row
-    counts beside the byte bound. Returns the entries."""
+    PyTorch's ops the field ran before), with f32 operands and with the
+    bf16 activations' (h written in bf16, g read in bf16, g's cotangent
+    written in bf16), on SP_ROWS x 512 operands over uniform z in
+    [-0.5, 0.5] and over extremes (|100 z| from 1e-36 to 1e4, both signs,
+    zeros), and through the scalar path on a 473-wide view of 512-wide
+    rows; NaN where the plain chain has NaN and, elsewhere, at most
+    SP_ULPS units in the last place of an f32 output and SP_BF16_ULPS of
+    a bf16 one. Times at the supervised groups' row counts beside the
+    byte bound. Returns the entries, named as ``counts`` names them."""
     import torch
     from mvsdf_tpu_torch.tracing.kernels import softplus100 as SP
     gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -532,6 +543,15 @@ def check_softplus100(dev):
         z[:, :8] = 0.0
         z[:, 8:16] = -0.0
         return z
+
+    def units(got, ref):
+        # bf16 values widened to f32 part by multiples of 2^16 f32 units
+        if got.dtype == bf16:
+            return ulps(got.float(), ref.float()) // 65536
+        return ulps(got, ref)
+
+    def name(entry, dt):
+        return f"softplus100_{'bf16_' if dt == bf16 else ''}{entry}"
     entries, worst = {}, {}
     for case in ("uniform", "extremes", "strided"):
         if case == "extremes":
@@ -543,70 +563,100 @@ def check_softplus100(dev):
         if case == "strided":
             y, b, g, gg, a = (t[..., :473] for t in (y, b, g, gg, a))
             b = b.contiguous()
-        z, h = SP.forward(y, b)
-        zr, hr = SP.forward_reference(y, b)
-        pairs = {"forward": [(z, zr), (h, hr)],
-                 "grad": [(SP.grad(g, z), SP.grad_reference(g, zr)),
-                          (SP.grad(g, z, a), SP.grad_reference(g, zr, a))],
-                 "grad_grad": list(zip(SP.grad_grad(gg, g, z),
-                                       SP.grad_grad_reference(gg, g, zr)))}
-        torch.cuda.synchronize()
-        for name, ps in pairs.items():
-            for got, ref in ps:
-                u = ulps(got, ref)
-                if (u < 0).any() or not torch.equal(got.isinf(),
-                                                    ref.isinf()):
-                    raise AssertionError(f"softplus100 {name} {case}: NaN "
-                                         f"or inf where the plain chain "
-                                         f"has none")
-                prev = worst.get(name, (0, 0.0, 1.0))
-                worst[name] = (max(prev[0], int(u.max())),
-                               max(prev[1], (got - ref).abs().nan_to_num(
-                                   0.0).max().item()),
-                               min(prev[2], (u == 0).float().mean().item()))
-            log(f"[kernel] softplus100 {name} {case} {tuple(y.shape)}: "
-                f"max {worst[name][0]} ulp, max|kernel - plain| "
-                f"{worst[name][1]:.3e}, bit-equal share (worst) "
-                f"{worst[name][2]:.6f}")
-    for name, (u, err, _) in worst.items():
-        if u > SP_ULPS:
-            raise AssertionError(f"softplus100 {name}: {u} ulp from the "
-                                 f"plain chain (tolerance {SP_ULPS})")
+        for dt in (torch.float32, bf16):
+            gd = g.to(dt)
+            z, h = SP.forward(y, b, True, dt)
+            zr, hr = SP.forward_reference(y, b, dt)
+            pairs = {
+                "forward": [(z, zr), (h, hr)],
+                "grad": [(SP.grad(gd, z), SP.grad_reference(gd, zr)),
+                         (SP.grad(gd, z, a), SP.grad_reference(gd, zr, a))],
+                "grad_grad": list(zip(SP.grad_grad(gg, gd, z),
+                                      SP.grad_grad_reference(gg, gd, zr)))}
+            torch.cuda.synchronize()
+            for entry, ps in pairs.items():
+                key = name(entry, dt)
+                for got, ref in ps:
+                    u = units(got, ref)
+                    if got.dtype != ref.dtype or (u < 0).any() or \
+                            not torch.equal(got.isinf(), ref.isinf()):
+                        raise AssertionError(
+                            f"{key} {case}: NaN or inf where the plain "
+                            f"chain has none, or another dtype")
+                    prev = worst.get(key, {})
+                    k = "bf16" if got.dtype == bf16 else "f32"
+                    worst[key] = dict(prev, **{k: max(prev.get(k, 0),
+                                                       int(u.max()))},
+                                      err=max(prev.get("err", 0.0), (
+                                          got.float() - ref.float()
+                                      ).abs().nan_to_num(0.0).max().item()),
+                                      equal=min(prev.get("equal", 1.0), (
+                                          u == 0).float().mean().item()))
+                w = worst[key]
+                bf16_units = f", {w['bf16']} bf16 ulp" if "bf16" in w else ""
+                log(f"[kernel] {key} {case} {tuple(y.shape)}: max "
+                    f"{w.get('f32', 0)} f32 ulp{bf16_units}, max|kernel - "
+                    f"plain| {w['err']:.3e}, bit-equal share (worst) "
+                    f"{w['equal']:.6f}")
+    for key, w in worst.items():
+        if w.get("f32", 0) > SP_ULPS or w.get("bf16", 0) > SP_BF16_ULPS:
+            raise AssertionError(f"{key}: {w} units in the last place from "
+                                 f"the plain chain (tolerance {SP_ULPS} "
+                                 f"f32, {SP_BF16_ULPS} bf16)")
     nan = torch.tensor([[float("nan"), 0.01]], device=dev)
-    z, h = SP.forward(nan, torch.zeros(2, device=dev))
-    if not (h[0, 0].isnan() and SP.grad(torch.ones_like(z), z)[0, 0].isnan()
-            and all(t[0, 0].isnan() for t in SP.grad_grad(
-                torch.ones_like(z), torch.ones_like(z), z))):
-        raise AssertionError("softplus100: NaN in did not give NaN out")
-    # bytes a row: (operands read + outputs written) x 512 x 4
-    plans = {"forward": (3, lambda y, b, g, gg, a, z: SP.forward(y, b),
-                         lambda y, b, g, gg, a, z: SP.forward_reference(y, b)),
-             "grad": (4, lambda y, b, g, gg, a, z: SP.grad(g, z, a),
-                      lambda y, b, g, gg, a, z: SP.grad_reference(g, z, a)),
-             "grad_grad": (5, lambda y, b, g, gg, a, z: SP.grad_grad(gg, g, z),
-                           lambda y, b, g, gg, a, z:
+    for dt in (torch.float32, bf16):
+        z, h = SP.forward(nan, torch.zeros(2, device=dev), True, dt)
+        one = torch.ones_like(z)
+        if not (h[0, 0].isnan() and SP.grad(one.to(dt), z)[0, 0].isnan()
+                and all(t[0, 0].isnan() for t in SP.grad_grad(
+                    one, one.to(dt), z))):
+            raise AssertionError(f"softplus100 ({dt}): NaN in did not give "
+                                 f"NaN out")
+    # bytes an element: operands read + outputs written, 4 an f32 value and
+    # 2 a bf16 one (forward: y, z, h; grad: g, z, a, out; grad_grad: gg, g,
+    # z, g's and z's cotangents)
+    plans = {"forward": ({torch.float32: 12, bf16: 10},
+                         lambda y, b, g, gg, a, z, dt: SP.forward(y, b, True,
+                                                                  dt),
+                         lambda y, b, g, gg, a, z, dt:
+                         SP.forward_reference(y, b, dt)),
+             "grad": ({torch.float32: 16, bf16: 14},
+                      lambda y, b, g, gg, a, z, dt: SP.grad(g, z, a),
+                      lambda y, b, g, gg, a, z, dt:
+                      SP.grad_reference(g, z, a)),
+             "grad_grad": ({torch.float32: 20, bf16: 16},
+                           lambda y, b, g, gg, a, z, dt:
+                           SP.grad_grad(gg, g, z),
+                           lambda y, b, g, gg, a, z, dt:
                            SP.grad_grad_reference(gg, g, z))}
     for n in SP_TIME_ROWS:
         ops = [rand(n, 512) - 0.5, rand(512) * 0.1, *(rand(n, 512)
                                                       for _ in range(3))]
         ops.append(SP.forward(ops[0], ops[1])[0])
-        for name, (passes, fn, ref_fn) in plans.items():
-            ms, plain_ms = cuda_ms(lambda: fn(*ops)), cuda_ms(
-                lambda: ref_fn(*ops))
-            bound_ms = passes * n * 512 * 4 / HBM_BYTES_S * 1e3
-            log(f"[kernel] softplus100 {name} {n} x 512: {ms:.4f} ms, plain "
-                f"chain {plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
-                f"({bound_ms / ms * 100:.1f}% of it)")
-            if n == SP_TIME_ROWS[-1]:
-                entries[name] = {
-                    "name": f"softplus100_{name}", "route": "cuda",
-                    "source": "mvsdf_tpu_torch/tracing/kernels/csrc/"
-                              "softplus100.cu",
-                    "replaces": "none (XLA fuses the chain in the JAX "
-                                "package)", "launches": None,
-                    "max_abs_err": worst[name][1], "max_ulp": worst[name][0],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": None}
+        for dt in (torch.float32, bf16):
+            args = ops[:2] + [ops[2].to(dt)] + ops[3:] + [dt]
+            for entry, (per, fn, ref_fn) in plans.items():
+                key = name(entry, dt)
+                ms, plain_ms = cuda_ms(lambda: fn(*args)), cuda_ms(
+                    lambda: ref_fn(*args))
+                bound_ms = per[dt] * n * 512 / HBM_BYTES_S * 1e3
+                log(f"[kernel] {key} {n} x 512: {ms:.4f} ms, plain chain "
+                    f"{plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
+                    f"({bound_ms / ms * 100:.1f}% of it)")
+                if n == SP_TIME_ROWS[-1]:
+                    w = worst[key]
+                    entries[key] = {
+                        "name": key, "route": "cuda",
+                        "source": "mvsdf_tpu_torch/tracing/kernels/csrc/"
+                                  "softplus100.cu",
+                        "replaces": "none (XLA fuses the chain in the JAX "
+                                    "package)", "launches": None,
+                        "max_abs_err": w["err"], "max_ulp": w["f32"],
+                        **({"max_bf16_ulp": w["bf16"]} if "bf16" in w
+                           else {}),
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": None}
     return list(entries.values())
 
 
@@ -870,9 +920,12 @@ def check_conditional_nodes(net, x, rays):
     and the positional encoding on the fallback's (n_steps samples a
     bench ray), captured once and replayed at count 0, COUNT_SHARE and all
     rows under set_sync_debug_mode("error"): the tiles below the count
-    equal the plain call on those rows bit for bit, the others keep what
-    they held. Prints each replay's device ms beside the plain call's on
-    the whole block."""
+    equal the plain call on each tile's rows bit for bit (what
+    ``bounded_rows`` computes; with bf16 activations cuBLAS's bf16
+    products choose their kernel, and so their order of sums, by the
+    rows, so a call on the whole block may part from the tiles' in the
+    last bits), the others keep what they held. Prints each replay's
+    device ms beside the plain call's on the whole block."""
     import torch
     from mvsdf_tpu_torch.compaction import bounded_rows, tile_rows
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
@@ -888,14 +941,15 @@ def check_conditional_nodes(net, x, rays):
              (3 + 6 * net.cfg.multires,)))
     for name, m, fn, width in arms:
         pts = torch.rand((m, 3), generator=g, device=dev) * 2 - 1
-        whole = fn(pts, None)
+        tile = tile_rows(m)
+        whole = torch.cat([fn(pts[s:s + tile], None)
+                           for s in range(0, m, tile)])
         buf = torch.full((m, *width), -1.0, device=dev)
         count = torch.zeros((), dtype=torch.int32, device=dev)
         graph = torch.cuda.CUDAGraph()
         bodies = ConditionalBodies(dev)
         with torch.cuda.graph(graph), bodies:
             bounded_rows(fn, pts, count, buf)
-        tile = tile_rows(m)
         ms = []
         for n in (0, int(m * COUNT_SHARE), m):
             count.fill_(n)
@@ -910,7 +964,7 @@ def check_conditional_nodes(net, x, rays):
                                      f": the tiles differ")
         log(f"[kernel] conditional nodes ({name}, {m} rows in tiles of "
             f"{tile}): replays at counts 0 / {int(m * COUNT_SHARE)} / {m} "
-            f"equal the plain call on the tiles below the count bit for "
+            f"equal the plain call on each tile below the count bit for "
             f"bit and leave the rest, no sync; {ms[0]:.3f} / {ms[1]:.3f} / "
             f"{ms[2]:.3f} ms against {cuda_ms(lambda: fn(pts, None)):.3f} "
             f"ms for the plain call on the whole block")
@@ -1513,7 +1567,7 @@ def phase_times(rows, n_rays):
 def cli_phase(tmp):
     """Phase 7: the training CLI on a DTU-sized scene directory under
     ``tmp``, then its resume. Returns the scene directory, the experiments
-    folder and the first run's ms/step per phase."""
+    folder, the first run's ms/step per phase and its kernel launches."""
     import torch
     from mvsdf_tpu_torch.data.synthetic import write_scene_dir
     torch.cuda.reset_peak_memory_stats()
@@ -1608,7 +1662,7 @@ def cli_phase(tmp):
     log(f"[cli] peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return {"data_dir": data_dir, "exps": os.path.join(tmp, "exps"),
-            "times": phase_times(rows, B * P)}
+            "times": phase_times(rows, B * P), "launches": total}
 
 
 def sphere_distance(verts):
@@ -2965,7 +3019,8 @@ def main():
     from mvsdf_tpu_torch.fields.embedder import positional_encoding
     from mvsdf_tpu_torch.tracing.kernels import build
     from mvsdf_tpu_torch.tracing.kernels import sdf_mlp as K
-    from mvsdf_tpu_torch.tracing.kernels.counts import ACT_KERNEL
+    from mvsdf_tpu_torch.tracing.kernels.counts import (ACT_KERNEL,
+                                                         ACT_KERNEL_BF16)
     from mvsdf_tpu_torch.train.step import init_params
 
     # 1. build
@@ -2977,6 +3032,10 @@ def main():
     # 2. kernels against their plain versions
     cfg, fcfg = bench_config(), fused_config()
     icfg, tcfg = cfg.model.implicit, cfg.model.tracer
+    # the activation's entries each configuration's steps launch: the bf16
+    # ones with the bench's bf16 activations
+    act, f_act = (ACT_KERNEL_BF16 if c.model.implicit.bf16_activations
+                  else ACT_KERNEL for c in (cfg, fcfg))
     net = init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     scene = make_scene(n_images=B, n_pix=P, feat_ch=32, img_hw=96,
@@ -3009,22 +3068,21 @@ def main():
 
     # 3-6. the main path in both trace configurations
     state, launches, stats = train("train", cfg, batch, gen, dev,
-                                   every_step=ACT_KERNEL,
+                                   every_step=act,
                                    some_step=("sdf_mlp",),
                                    never=("sdf_mlp_xyz", "secant",
                                           "sphere_march"))
     g_launches = graph_steps("train", cfg, batch, gen, dev, stats[0],
-                             every=("sdf_mlp_count", *ACT_KERNEL))
+                             every=("sdf_mlp_count", *act))
     eval_render("eval", cfg, state, batch, must=("sdf_mlp",))
     state, f_launches, f_stats = train(
         "train_fused", fcfg, batch, gen, dev,
-        every_step=("sphere_march", *ACT_KERNEL),
+        every_step=("sphere_march", *f_act),
         some_step=("sdf_mlp_xyz", "secant"), never=("sdf_mlp",))
     fg_launches = graph_steps("train_fused", fcfg, batch, gen, dev,
                               f_stats[0], every=("sphere_march",
                                                  "sdf_mlp_xyz_count",
-                                                 "secant_count",
-                                                 *ACT_KERNEL))
+                                                 "secant_count", *f_act))
     eval_render("eval_fused", fcfg, state, batch, must=("sphere_march",))
     # the march's rows on the field the training steps left: rays take more
     # line searches on it than on the seed-0 sphere
@@ -3035,7 +3093,7 @@ def main():
     for e in entries:
         name = e["name"]
         e["launches"] = (launches if name == "sdf_mlp" else g_launches
-                         if name == "sdf_mlp_count" or name in ACT_KERNEL
+                         if name == "sdf_mlp_count" or name in act
                          else fg_launches if name.endswith("_count")
                          else f_launches)[name]
 
@@ -3044,6 +3102,12 @@ def main():
     # the trimming of phase 8's mesh
     with tempfile.TemporaryDirectory(prefix="mvsdf_cli_") as tmp:
         run = cli_phase(tmp)
+        # the activation's entries that the bench steps do not launch:
+        # their launches in the CLI's run (f32 activations, its default)
+        for e in entries:
+            if e["name"] in ACT_KERNEL + ACT_KERNEL_BF16 and \
+                    e["name"] not in act:
+                e["launches"] = run["launches"][e["name"]]
         mesh = eval_phase(tmp, run["exps"], dev)
         exps_cams = cams_phase(tmp, run["data_dir"], run["times"])
         eval_cams_phase(tmp, run["data_dir"], exps_cams, dev)

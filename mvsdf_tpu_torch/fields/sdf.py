@@ -14,6 +14,12 @@ the activation's VJP in the spatial gradient and that VJP's in the loss's
 backward: on the card each is one launch of the hand-written kernel of
 ``tracing/kernels/csrc/softplus100.cu``, elsewhere PyTorch's ops in the
 order ``softplus100(x @ W + b)`` takes them.
+
+With ``bf16_activations`` (the JAX package's: the encoded input, each
+hidden activation and the skip's concatenation stored in bf16) a hidden
+layer is one bf16 product (``mlp.bf16_linear``) and one launch of the
+activation kernel (``bias_softplus100_bf16``), which writes h in bf16
+itself: no f32 copy of an activation, no separate cast.
 """
 from __future__ import annotations
 
@@ -153,25 +159,43 @@ def bias_softplus100(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return SP.softplus100_bias(y, b.expand_as(y), keep_z)[1]
 
 
+def bias_softplus100_bf16(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``bias_softplus100`` with the activation stored in bf16 (the
+    operator's ``h_bf16``): softplus100(y + b).to(bfloat16) in one launch
+    on the card."""
+    keep_z = torch.is_grad_enabled() and (y.requires_grad or b.requires_grad)
+    return SP.softplus100_bias(y, b.expand_as(y), keep_z, True)[1]
+
+
+def bf16_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t.to(bfloat16)`` in one copy, as a view of rows padded to 16
+    bytes (8 values): the tensor cores' products read a 39-wide encoded
+    input at an aligned row stride, where its own 78 bytes would send
+    them to a kernel for unaligned rows. The padding is never read."""
+    d = t.shape[-1]
+    out = t.new_empty(t.shape[:-1] + (-(-d // 8) * 8,),
+                      dtype=torch.bfloat16)[..., :d]
+    return out.copy_(t)
+
+
 def implicit_apply(net: ImplicitNetwork, x: torch.Tensor) -> torch.Tensor:
     """x (..., 3) -> (..., 2 + feature_vector_size) f32:
     [sdf, surface-indicator logit, feature]."""
     cfg = net.cfg
     bf16 = cfg.bf16_activations
     inp = positional_encoding(x, cfg.multires)
+    act = bias_softplus100
     if bf16:
-        inp = inp.to(torch.bfloat16)
+        inp = bf16_rows(inp)
+        act = bias_softplus100_bf16
     h = inp
     n_layers = len(net.layers)
     for l, layer in enumerate(net.layers):
         if l in cfg.skip_in:
+            # bf16 in, bf16 out where the activations are
             h = torch.cat([h, inp], dim=-1) / np.sqrt(2)
-            if bf16:
-                h = h.to(torch.bfloat16)
         if l < n_layers - 1:
-            h = linear_apply(layer, h, bias_softplus100)
-            if bf16:
-                h = h.to(torch.bfloat16)
+            h = linear_apply(layer, h, act)
         else:
             h = layer(h)
     return h

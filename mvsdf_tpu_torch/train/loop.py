@@ -527,8 +527,10 @@ class Trainer:
         (or eager steps on the CPU) and which the capture's warm-up;
         ``collectives`` the chunk's all-reduces and their bytes; ``act``
         its replays' launches of the activation kernel
-        (``counts.ACT_KERNEL``); ``projected`` the rows their camera
-        projections contracted (``projected_rows``)."""
+        (``counts.ACT_KERNEL``), ``act_bf16`` of its bf16 entries
+        (``counts.ACT_KERNEL_BF16``); ``projected`` the rows their camera
+        projections contracted (``projected_rows``), ``bf16_rows`` those
+        the SDF network's bf16 products contracted (``bf16_gemm_rows``)."""
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         span = self.tracer.span
@@ -545,7 +547,8 @@ class Trainer:
         chunk = {"epochs": epochs, "plan": plan, "capture_s": None,
                  "replays": 0, "done": None, "clock": _StepClock(self.device),
                  "replay": [True] * len(epochs), "collectives": None,
-                 "act": None, "projected": None}
+                 "act": None, "projected": None, "act_bf16": None,
+                 "bf16_rows": None}
         launched = None if stamps is None else counts.snapshot()
         replays_from = launched   # the activation's and projections' counts
         with contextlib.ExitStack() as spans:
@@ -580,6 +583,8 @@ class Trainer:
             n = counts.since(replays_from)
             chunk["act"] = sum(n[k] for k in counts.ACT_KERNEL)
             chunk["projected"] = n["projected_rows"]
+            chunk["act_bf16"] = sum(n[k] for k in counts.ACT_KERNEL_BF16)
+            chunk["bf16_rows"] = n["bf16_gemm_rows"]
         if cuda:
             out = _to_pinned(out)
             stamps = None if stamps is None else _to_pinned(stamps)
@@ -620,6 +625,8 @@ class Trainer:
                                   collectives=chunk["collectives"],
                                   act=chunk["act"],
                                   projected=chunk["projected"],
+                                  act_bf16=chunk["act_bf16"],
+                                  bf16_rows=chunk["bf16_rows"],
                                   allreduce=None if chunk["allreduce"] is None
                                   else chunk["allreduce"].numpy())
         ms_step = max(ms_step, 1e-6)

@@ -210,17 +210,19 @@ class Tracer:
 
     def add_chunk(self, e0: int, rows: np.ndarray, replay, clock_ms: float,
                   replays: int, collectives=None, allreduce=None,
-                  act=None, projected=None) -> None:
+                  act=None, projected=None, act_bf16=None,
+                  bf16_rows=None) -> None:
         """A chunk's stamp and counter rows (module docstring), its
         (all-reduces, bytes all-reduced) where counted, its stamps after
         the gradient all-reduce where a step of several ranks made them,
-        and its replays' activation kernel launches and projected rows
-        where counted."""
+        and its replays' activation kernel launches (f32 and bf16
+        entries), projected rows and bf16 product rows where counted."""
         self.chunks.append({"chunk": e0, "rows": np.array(rows, np.int64),
                             "replay": np.asarray(replay, bool),
                             "clock_ms": clock_ms, "replays": replays,
                             "collectives": collectives, "act": act,
-                            "projected": projected,
+                            "projected": projected, "act_bf16": act_bf16,
+                            "bf16_rows": bf16_rows,
                             "allreduce": None if allreduce is None else
                             np.array(allreduce, np.int64)})
 
@@ -255,7 +257,10 @@ class Tracer:
         chunks that counted them, None where none did); the activation
         kernel's launches and the camera projections' rows a replay
         (``act_kernel_launches_per_step``, ``projected_rows_per_step``;
-        None where no chunk counted them).
+        None where no chunk counted them); with bf16 activations the
+        launches of the activation's bf16 entries and the rows the bf16
+        products contracted a replay (``act_bf16_launches_per_step``,
+        ``bf16_gemm_rows_per_step``; None where no chunk counted them).
         Besides: the stages' sum and the ``_StepClock`` ms a replay, the
         ``plan_wait`` span a step, the share of the chunks' planned epochs
         whose draws were ready when asked, and each boundary with the
@@ -268,6 +273,7 @@ class Tracer:
                                "update"), 0)
         n_coll = coll_steps = coll_bytes = 0
         act = act_steps = projected = projected_steps = 0
+        bf16 = {"act_bf16": [0, 0], "bf16_rows": [0, 0]}
         gap = 0
         boundaries = []
         active = computed = steps = replays = 0
@@ -288,6 +294,10 @@ class Tracer:
             if c["projected"] is not None:
                 projected += c["projected"]
                 projected_steps += c["replays"]
+            for k, tally in bf16.items():
+                if c.get(k) is not None:
+                    tally[0] += c[k]
+                    tally[1] += c["replays"]
             gap += int((s[1:, 0] - s[:-1, 6]).sum())
             prev = [p for p in self.chunks[:i] if p["replay"].any()]
             if prev:
@@ -337,6 +347,10 @@ class Tracer:
                    if act_steps else None,
                    projected_rows_per_step=projected / projected_steps
                    if projected_steps else None,
+                   act_bf16_launches_per_step=bf16["act_bf16"][0] /
+                   bf16["act_bf16"][1] if bf16["act_bf16"][1] else None,
+                   bf16_gemm_rows_per_step=bf16["bf16_rows"][0] /
+                   bf16["bf16_rows"][1] if bf16["bf16_rows"][1] else None,
                    clock_ms_per_replay=clock_ms / replays if replays
                    else None,
                    boundaries=boundaries)

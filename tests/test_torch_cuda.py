@@ -1445,3 +1445,75 @@ def test_projection_contraction_on_the_card_equals_the_cpu(cuda):
                    if e.device_type == DeviceType.CUDA]
         assert len(kernels) == 2 * M.shape[-1] - 1, kernels
         assert not any("gemv" in k or "gemm" in k for k in kernels), kernels
+
+
+def _bf16_ulps(a, b):
+    """bf16 units in the last place between entries."""
+    return _ulps(a.float(), b.float()) // 65536
+
+
+@pytest.mark.cuda
+def test_softplus100_bf16_entries_match_their_plain_versions(cuda):
+    """The activation's entries on bf16 operands (h written in bf16, g
+    read in bf16, g's cotangent written in bf16) at 65,536 x 512 and a
+    473-wide view (the scalar path) against their plain versions on the
+    card. z,
+    the f32 VJPs: at most 4 f32 units in the last place, as the f32
+    entries; h and g's cotangent, bf16 roundings of f32 values that may
+    part by those units, so at most 1 bf16 unit. One launch an entry,
+    counted."""
+    from mvsdf_tpu_torch.tracing.kernels import counts
+    from mvsdf_tpu_torch.tracing.kernels import softplus100 as SP
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 65536
+    y = torch.rand((n, 512), generator=gen, device=cuda) - 0.5
+    b = (torch.rand(512, generator=gen, device=cuda) - 0.5) * 0.1
+    g = torch.randn((n, 512), generator=gen, device=cuda).bfloat16()
+    gg, a = (torch.randn((n, 512), generator=gen, device=cuda)
+             for _ in range(2))
+    for cols in (512, 473):
+        yc, gc, ggc, ac = (t[:, :cols] for t in (y, g, gg, a))
+        bc = b[:cols]
+        before = counts.snapshot()
+        z, h = SP.forward(yc, bc, True, torch.bfloat16)
+        got = [z, h, SP.grad(gc, z), SP.grad(gc, z, ac),
+               *SP.grad_grad(ggc, gc, z)]
+        want = [*SP.forward_reference(yc, bc, torch.bfloat16),
+                SP.grad_reference(gc, z), SP.grad_reference(gc, z, ac),
+                *SP.grad_grad_reference(ggc, gc, z)]
+        torch.cuda.synchronize()
+        n_act = counts.since(before)
+        assert [n_act[k] for k in counts.ACT_KERNEL_BF16] == [1, 2, 1]
+        for i, (u, w) in enumerate(zip(got, want)):
+            assert u.shape == w.shape == (n, cols) and u.dtype == w.dtype
+            assert torch.isfinite(u.float()).all(), (cols, i)
+            d = _bf16_ulps(u, w) if u.dtype == torch.bfloat16 else \
+                _ulps(u, w)
+            assert d.max().item() <= (1 if u.dtype == torch.bfloat16
+                                      else 4), (cols, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(39, 512), (512, 512), (512, 473),
+                                 (512, 258)])
+def test_bf16_linear_on_the_card_matches_its_plain_version(cuda, K, N):
+    """``mlp.bf16_linear`` at the SDF network's layer shapes on 65,537
+    rows: the card's bf16 tensor-core product (f32 sums) against the
+    plain version's f32 product of the same bf16 values (TF32 off). The
+    products are exact in f32, so the two part only by the order of the
+    f32 sums: at most (K - 1) 2^-24 sum_k |x_k w_k| an entry, any order's
+    bound. Its gradients are the plain version's own products. The rows
+    are counted."""
+    from mvsdf_tpu_torch.fields import mlp
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((65537, K), generator=gen, device=cuda).bfloat16()
+    w16 = (torch.randn((K, N), generator=gen, device=cuda) /
+           K ** 0.5).bfloat16()
+    before = mlp.BF16_GEMM_ROWS.launches
+    got = mlp.bf16_linear(x, w16.float(), w16)
+    torch.cuda.synchronize()
+    assert mlp.BF16_GEMM_ROWS.launches == before + 65537
+    want = x.float() @ w16.float()
+    scale = x.float().abs() @ w16.float().abs()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert ((got - want).abs() <= (K - 1) * 2.0 ** -24 * scale).all()
